@@ -24,12 +24,37 @@ lines; any failure exits nonzero, and nothing is caught:
      torch.profiler pass over a short generate (device busy share);
   5. the kernel's time beside its byte bound, its plain version's and
      `torch.matmul`'s on the dequantised f32 weight, at the four shapes;
+  6. the CoMeFa step kernel (`csrc/comefa_step.cu`), built in the same
+     parallel nvcc run as the bit-plane kernel: build time, registers,
+     shared memory and spills;
+  7. the step kernel against its plain version (the packed torch scan) and
+     the uint8 `reference` engine on the card: seeded random programs,
+     shared and per-slot, chain both ways, run_programs with latch resets
+     both ways, nb in {1, 2, 16}, plus real chunk programs at the main
+     path's shapes; mem, carry and mask must be bit-identical;
+  8. the grid path: full-width SmolLM-360M (d_model 960, d_ff 2560, 15/5
+     heads, vocab 49152, bf16, 8-bit planes, random seeded params) at
+     full depth (32 layers), served by `serve_continuous` with 4 staggered
+     requests over a 4-slot `GridLinearExecutor` (broadcast mode, cuda
+     engine); every hooked call is also run by a ``backend="reference"``
+     executor and must be `torch.equal`; the step kernel's launch count is
+     reset just before and read just after, and must equal the grid's
+     dispatch count; grid cycles per layer-wave must equal the planner's
+     quote;
+  9. the per-slot layout on the card: ``recode="naive"`` and ``"auto"`` at
+     the tiny serving config of `benchmarks/sim_speed.py` (vocab 64, one
+     layer, d_model 32, 6 staggered requests over 2 slots), bit-exact
+     against the reference backend;
+ 10. the step kernel's time for one chunk dispatch (shared program, 4
+     slots, nb = 16, T about 765) with CUDA events, beside its byte and
+     dependency bounds and its plain version's time;
 
 then one JSON line of kernel records, the card's name and power limit as
 nvidia-smi prints them, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -37,6 +62,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -52,6 +78,17 @@ SMOLLM_SHAPES = {(960, 960): 2,      # wq, wo
                  (960, 2560): 2,     # wi, wg
                  (2560, 960): 1}     # ffn wo
 RAGGED = (3, 64, 100)
+# depth of phase 8's full-width grid model: all 32 layers, since the phase
+# measured 52.8 s at that depth (0.33 s a layer-wave; PERF.md), well under
+# the 300 s that would call for a cut
+GRID_LAYERS = 32
+GRID_SLOTS = 4
+# The step kernel's dependency bound: each instruction is at least one
+# dependent shared-memory load -> ALU -> store step.  Hopper's
+# shared-memory load-to-use latency is about 30 cycles (published
+# microbenchmarks; not measured here) and a dependent integer op about 4.
+SMEM_LOAD_CYCLES = 30
+ALU_CYCLES = 4
 
 
 def fail(msg):
@@ -66,14 +103,18 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def phase_build(bpm):
+def phase_build(nvcc, sources):
+    """Build every kernel of the port at once (one nvcc per source)."""
     t0 = time.perf_counter()
-    lib = bpm.build()
+    libs = nvcc.build(*sources)
     dt = time.perf_counter() - t0
-    print(f"[1 build] {lib.name} in {dt:.2f} s (nvcc {' '.join(bpm.NVCC_FLAGS)})")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[1 build]   {line.strip()}")
+    print(f"[1 build] {len(libs)} kernels in {dt:.2f} s, in parallel "
+          f"(nvcc {' '.join(nvcc.NVCC_FLAGS)})")
+    for tag, lib in zip(("1 build", "6 build"), libs):
+        print(f"[{tag}] {lib.name}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[{tag}]   {line.strip()}")
 
 
 def _operands(gen, dev, bits, m, k, n, integer):
@@ -345,6 +386,318 @@ def phase_timings(bpm, bitplane, dev, smi):
     return layer
 
 
+# ---------------------------------------------------------------------------
+# the CoMeFa grid path: step kernel, grid-served decode, per-slot layout
+# ---------------------------------------------------------------------------
+
+def _random_fields(rng, t, isa):
+    """Seeded random engine field rows [t, F]: every select, every latch
+    control, co-issued port-2 writes (dst2 != dst) included."""
+    n = isa.N_ROWS
+    cols = dict(
+        src1_row=rng.integers(0, n, t), src2_row=rng.integers(0, n, t),
+        dst_row=rng.integers(0, n - 2, t), truth_table=rng.integers(0, 16, t),
+        pred_sel=rng.integers(0, 4, t), w1_sel=rng.integers(0, 3, t),
+        w2_sel=rng.integers(0, 4, t), wp1_en=rng.integers(0, 2, t),
+        wp2_en=rng.integers(0, 2, t), c_en=rng.integers(0, 2, t),
+        c_rst=rng.integers(0, 2, t), m_en=rng.integers(0, 2, t),
+        ext_bit=rng.integers(0, 2, t), b_ext=rng.integers(0, 2, t),
+        dst2_row=rng.integers(0, n - 2, t), pred2_sel=rng.integers(0, 4, t))
+    return np.stack([cols[f] for f in isa.ENGINE_FIELD_NAMES],
+                    axis=1).astype(np.int32)
+
+
+def _random_grid_state(rng, s, nb, isa):
+    mem = rng.integers(0, 2, (s, nb, isa.N_ROWS, isa.N_COLS), dtype=np.uint8)
+    mem[:, :, isa.ROW_ZEROS] = 0
+    mem[:, :, isa.ROW_ONES] = 1
+    carry = rng.integers(0, 2, (s, nb, isa.N_COLS), dtype=np.uint8)
+    mask = rng.integers(0, 2, (s, nb, isa.N_COLS), dtype=np.uint8)
+    return mem, carry, mask
+
+
+def _grids_equal(grids):
+    ref = grids[0]
+    return all(np.array_equal(ref.mem, g.mem)
+               and np.array_equal(ref.carry, g.carry)
+               and np.array_equal(ref.mask, g.mask)
+               and ref.cycles == g.cycles for g in grids[1:])
+
+
+def _chunk_program(comefa_sim, comefa_exec, k, n, tile_index=1):
+    """The broadcast chunk program the main path runs for a (K, N)
+    projection at 8-bit weights and activations, as an engine matrix."""
+    from repro_torch.core.comefa import schedule
+    acc = comefa_exec.acc_bits_for(BITS, BITS, k)
+    k_tile = comefa_sim.gemv_batched_k_tile(BITS, BITS, acc)
+    plan = schedule.cached_plan_gemv(k, n, BITS, BITS, acc,
+                                     k_tile=min(k, k_tile))
+    x_rows = comefa_sim._gemv_batched_layout(plan)
+    tile = plan.tiles()[tile_index]
+    return plan, comefa_sim._gemv_batched_chunk_program(plan, tile, x_rows,
+                                                        True)[1]
+
+
+def phase_step_kernel(cs, comefa_sim, comefa_exec, dev):
+    """Step kernel vs its plain version vs the uint8 reference engine."""
+    from repro_torch.core.comefa import ComefaGrid, engine_packed, isa
+    rng = np.random.default_rng(7)
+    checks = launched = 0
+    worst = 0
+    t0 = time.perf_counter()
+    for nb in (1, 2, 16):
+        for chain in (False, True):
+            s = GRID_SLOTS
+            mem, carry, mask = _random_grid_state(rng, s, nb, isa)
+            shared = _random_fields(rng, 48, isa)
+            per_slot = [_random_fields(rng, int(rng.integers(20, 48)), isa)
+                        for _ in range(s)]
+            batch = [_random_fields(rng, 16, isa) for _ in range(3)]
+            for what in ("shared", "per_slot", "reset", "threaded"):
+                grids = []
+                for eng in ("cuda", "packed", "reference"):
+                    g = ComefaGrid(s, n_blocks=nb, chain=chain, engine=eng,
+                                   device=dev)
+                    g.mem, g.carry, g.mask = (mem.copy(), carry.copy(),
+                                              mask.copy())
+                    before = cs.launches
+                    if what == "shared":
+                        g.run(shared)
+                    elif what == "per_slot":
+                        g.run_per_slot(per_slot)
+                    else:
+                        g.run_programs(batch, reset_latches=what == "reset")
+                    launched += cs.launches - before
+                    grids.append(g)
+                checks += 1
+                if not _grids_equal(grids):
+                    fail(f"step kernel, plain scan and reference engine "
+                         f"disagree: nb={nb} chain={chain} {what}")
+    print(f"[7 step] random programs: {checks} cases (nb 1/2/16, chain "
+          f"both ways, shared / per-slot / run_programs with and without "
+          f"latch resets), kernel = plain scan = reference engine bit for "
+          f"bit; {launched} kernel launches; "
+          f"{time.perf_counter() - t0:.1f} s")
+    for k, n in SMOLLM_SHAPES:
+        plan, mat = _chunk_program(comefa_sim, comefa_exec, k, n)
+        mem, carry, mask = _random_grid_state(rng, GRID_SLOTS,
+                                              plan.n_blocks, isa)
+        state = [engine_packed.pack_bits(v).to(dev)
+                 for v in (mem, carry, mask)]
+        prog = torch.tensor(mat, device=dev)
+        got = cs.run_packed(*[v.clone() for v in state], prog, chain=False,
+                            per_slot=False)
+        want = cs.run_packed_plain(*[v.clone() for v in state], prog,
+                                   chain=False, per_slot=False)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        worst = max(worst, max(int((a.long() - b.long()).abs().max())
+                               for a, b in zip(got, want)))
+        print(f"[7 step] chunk program of ({k}, {n}): T={mat.shape[0]}, "
+              f"{GRID_SLOTS} slots x nb={plan.n_blocks}: kernel = plain "
+              f"{same}")
+        if not same:
+            fail(f"step kernel disagrees with plain on the ({k}, {n}) "
+                 f"chunk program")
+    return worst
+
+
+class _Probe:
+    """Linear hook that runs the grid executor and the reference executor
+    on every call and requires equal outputs (`torch.equal`)."""
+
+    def __init__(self, grid_ex, ref_ex):
+        self.grid_ex, self.ref_ex = grid_ex, ref_ex
+        self.calls = 0
+
+    @property
+    def active_mask(self):
+        return self.grid_ex.active_mask
+
+    @active_mask.setter
+    def active_mask(self, live):
+        self.grid_ex.active_mask = live
+        self.ref_ex.active_mask = live
+
+    def __call__(self, params, x2, bits):
+        yg = self.grid_ex(params, x2, bits)
+        yr = self.ref_ex(params, x2, bits)
+        if not torch.equal(yg, yr):
+            fail(f"grid and reference executors disagree at hooked call "
+                 f"{self.calls} (max |d| "
+                 f"{float((yg - yr).abs().max()):.3e})")
+        self.calls += 1
+        return yg
+
+
+def _grid_dispatches(metrics):
+    """Grid dispatches the cuda engine made (the registry's counter)."""
+    c = metrics.counter("comefa.dispatches")
+    return sum(v for labels, v in c.series().items()
+               if ("kind", "grid") in labels and ("engine", "cuda") in labels)
+
+
+def _layer_quote(comefa_sim, comefa_exec):
+    """Modelled grid cycles and chunk dispatches of one layer-wave: the
+    port planner's broadcast quote for the 7 projections."""
+    cycles = chunks = 0
+    for (k, n), count in SMOLLM_SHAPES.items():
+        q = comefa_sim._broadcast_quote(
+            k, n, BITS, BITS, comefa_exec.acc_bits_for(BITS, BITS, k), True)
+        cycles += count * sum(q.compute_cycles)
+        chunks += count * len(q.compute_cycles)
+    return cycles, chunks
+
+
+def phase_grid_serve(cs, configs, lm, engine, comefa_exec, comefa_sim,
+                     metrics, dev, layers):
+    """The grid path at full width: serve_continuous on the CoMeFa grid."""
+    cfg = configs.get("smollm-360m", quant_bits=BITS, n_layers=layers)
+    model = lm.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    quote, chunks = _layer_quote(comefa_sim, comefa_exec)
+    print(f"[8 grid] {cfg.name} at depth {cfg.n_layers}: d_model "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, {cfg.n_heads}/{cfg.kv_heads} "
+          f"heads, vocab {cfg.vocab}, {cfg.dtype}, {BITS}-bit planes; "
+          f"planner quote {quote} cycles and {chunks} chunk dispatches "
+          f"per layer-wave")
+    rng = np.random.default_rng(8)
+    # staggered: request 0 retires two steps before request 1
+    shape = [(2, 2), (3, 3), (2, 3), (3, 2)]
+    reqs = [engine.Request(rng.integers(0, cfg.vocab, p), s)
+            for p, s in shape]
+    probe = _Probe(
+        comefa_exec.GridLinearExecutor(slots=GRID_SLOTS, recode=None,
+                                       backend="grid"),
+        comefa_exec.GridLinearExecutor(slots=GRID_SLOTS, recode=None,
+                                       backend="reference"))
+    stats = {}
+    # ---- the grid path, counted ----
+    cs.launches = 0
+    disp0 = _grid_dispatches(metrics)
+    t0 = time.perf_counter()
+    outs = engine.serve_continuous(model, reqs, slots=GRID_SLOTS,
+                                   max_len=8, executor=probe, stats=stats)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launched = cs.launches
+    dispatched = _grid_dispatches(metrics) - disp0
+    # ---- end of the counted grid path ----
+    grid_ex = probe.grid_ex
+    waves = stats["steps"]               # one wave a step: live <= slots
+    emitted = sum(len(o) for o in outs)
+    per_layer_wave = serve_s / (cfg.n_layers * waves)
+    print(f"[8 grid] serve_continuous: {len(reqs)} requests, {emitted} "
+          f"tokens in {serve_s:.2f} s = {emitted / serve_s:.3f} tokens/s; "
+          f"{stats['steps']} batched steps, occupancy "
+          f"{stats['occupancy']:.3f} (grid {grid_ex.occupancy():.3f}); "
+          f"{probe.calls} hooked calls, grid = reference at every one")
+    print(f"[8 grid] {waves} waves x {cfg.n_layers} layers: "
+          f"{per_layer_wave:.3f} s per layer-wave; step kernel launches "
+          f"{launched}, grid dispatches {dispatched}, expected "
+          f"{waves * cfg.n_layers * chunks}; grid_cycles "
+          f"{grid_ex.grid_cycles} = {grid_ex.grid_cycles / (waves * cfg.n_layers):.0f}"
+          f" per layer-wave (quote {quote})")
+    if probe.calls != 7 * cfg.n_layers * stats["steps"]:
+        fail(f"{probe.calls} hooked calls")
+    if launched == 0 or launched != dispatched or \
+            launched != waves * cfg.n_layers * chunks:
+        fail("the grid path did not run every chunk through the step kernel")
+    if grid_ex.grid_cycles != quote * waves * cfg.n_layers:
+        fail("grid cycles per layer-wave differ from the planner's quote")
+    for r, o in zip(reqs, outs):
+        if len(o) != r.steps or o.min() < 0 or o.max() >= cfg.vocab:
+            fail("serve_continuous returned a wrong token stream")
+    return launched, per_layer_wave, emitted / serve_s
+
+
+def phase_per_slot(cs, configs, common, lm, engine, comefa_exec, dev):
+    """recode naive / auto (per-slot programs) at the tiny serving config."""
+    cfg = dataclasses.replace(
+        common.reduced(configs.get("smollm-360m"), vocab=64, n_layers=1,
+                       d_model=32, d_ff=64, n_heads=2, kv_heads=2,
+                       head_dim=16, dtype="float32"), quant_bits=BITS)
+    model = lm.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    for recode in ("naive", "auto"):
+        reqs = [engine.Request(np.arange(1, 2 + i % 3), 2 + (i * 2) % 5)
+                for i in range(6)]
+        probe = _Probe(
+            comefa_exec.GridLinearExecutor(slots=2, recode=recode,
+                                           backend="grid"),
+            comefa_exec.GridLinearExecutor(slots=2, backend="reference"))
+        before = cs.launches
+        t0 = time.perf_counter()
+        outs = engine.serve_continuous(model, reqs, slots=2, max_len=12,
+                                       executor=probe)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_tok = sum(len(o) for o in outs)
+        print(f"[9 per-slot] recode={recode}: {n_tok} tokens in {dt:.2f} s,"
+              f" grid = reference at all {probe.calls} hooked calls, "
+              f"{probe.grid_ex.grid_cycles / n_tok:.2f} grid cycles per "
+              f"token, {cs.launches - before} kernel launches")
+        if cs.launches == before:
+            fail(f"recode={recode} launched no step kernel")
+
+
+def phase_step_timing(cs, comefa_sim, comefa_exec, dev, smi):
+    """One chunk dispatch of the main path, timed with CUDA events."""
+    from repro_torch.core.comefa import engine_packed, isa
+    k, n = 960, 2560                       # wi / wg: nb = 16
+    plan, mat = _chunk_program(comefa_sim, comefa_exec, k, n)
+    t, s, nb = mat.shape[0], GRID_SLOTS, plan.n_blocks
+    mem, carry, mask = _random_grid_state(np.random.default_rng(10), s, nb,
+                                          isa)
+    state = [engine_packed.pack_bits(v).to(dev) for v in (mem, carry, mask)]
+    prog = torch.tensor(mat, device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    before = cs.launches
+    t_kernel = timed(lambda: cs.run_packed(*state, prog, chain=False,
+                                           per_slot=False), 200)
+    timing_launches = cs.launches - before
+    t_plain = timed(lambda: cs.run_packed_plain(*state, prog, chain=False,
+                                                per_slot=False), 2)
+    words = s * nb * isa.N_ROWS * engine_packed.N_WORDS
+    latch = 2 * s * nb * engine_packed.N_WORDS
+    nbytes = 4 * (2 * (words + latch)) + 4 * mat.size
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    # ~30 32-bit logic/shift ops per word per instruction
+    t_ops = 1e3 * 30 * s * nb * engine_packed.N_WORDS * t / F32_FLOP_PER_S
+    clock = _max_sm_clock_hz()
+    t_dep = 1e3 * t * (SMEM_LOAD_CYCLES + ALU_CYCLES) / clock
+    print(f"[10 time] one chunk dispatch (T={t}, {s} slots x nb={nb}): "
+          f"kernel {t_kernel * 1e3:.2f} us, plain {t_plain * 1e3:.1f} us; "
+          f"byte bound {t_bytes * 1e3:.3f} us, operation bound "
+          f"{t_ops * 1e3:.3f} us, dependency bound {t_dep * 1e3:.2f} us "
+          f"(T x {SMEM_LOAD_CYCLES + ALU_CYCLES} cycles at "
+          f"{clock / 1e9:.3f} GHz); kernel / dependency bound "
+          f"{t_kernel / t_dep:.1f}; {timing_launches} timing launches; "
+          f"{smi}")
+    return {"ms": t_kernel, "plain_ms": t_plain,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "dependency_bound_ms": t_dep, "library_ms": None}
+
+
+def _max_sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
 def main():
     sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
@@ -353,9 +706,12 @@ def main():
         return 1
     from repro_torch import configs
     from repro_torch.kernels import bitplane_matmul as bpm
+    from repro_torch.kernels import comefa_sim, nvcc
+    from repro_torch.kernels import comefa_step as cs
     from repro_torch.models import common, lm
+    from repro_torch.obs import metrics
     from repro_torch.quant import bitplane
-    from repro_torch.serve import engine
+    from repro_torch.serve import comefa_exec, engine
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
@@ -364,7 +720,7 @@ def main():
     t_start = time.perf_counter()
     print(f"chip_smoke: torch {torch.__version__} (CUDA "
           f"{torch.version.cuda}) on {torch.cuda.get_device_name(0)}; {smi}")
-    phase_build(bpm)
+    phase_build(nvcc, (bpm.SOURCE, cs.SOURCE))
     worst = phase_kernel_vs_plain(bpm, bitplane, dev)
     phase_reduced(bpm, configs, common, lm, engine, dev)
     launched, step_s = phase_full(bpm, configs, common, lm, engine, dev)
@@ -373,11 +729,23 @@ def main():
     print(f"[5 time] 32 layers x 7 kernel launches = {per_step:.3f} ms of a "
           f"{1e3 * step_s:.2f} ms decode step ({100 * per_step / (1e3 * step_s):.1f}"
           f"% of its wall time); {smi}")
-    record = {"kernels": [{
-        "name": "bitplane_matmul", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
-        "replaces": "src/repro/kernels/bitplane_matmul.py:69",
-        "launches": launched, "max_abs_err": worst, **layer}]}
+    step_err = phase_step_kernel(cs, comefa_sim, comefa_exec, dev)
+    step_launched, per_layer_wave, tok_s = phase_grid_serve(
+        cs, configs, lm, engine, comefa_exec, comefa_sim, metrics, dev,
+        GRID_LAYERS)
+    phase_per_slot(cs, configs, common, lm, engine, comefa_exec, dev)
+    timing = phase_step_timing(cs, comefa_sim, comefa_exec, dev, smi)
+    print(f"[10 time] grid decode at depth {GRID_LAYERS}: {tok_s:.3f} "
+          f"tokens/s, {per_layer_wave:.3f} s per layer-wave; {smi}")
+    record = {"kernels": [
+        {"name": "bitplane_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
+         "replaces": "src/repro/kernels/bitplane_matmul.py:69",
+         "launches": launched, "max_abs_err": worst, **layer},
+        {"name": "comefa_step", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/comefa_step.cu",
+         "replaces": "src/repro/kernels/comefa_step.py:80",
+         "launches": step_launched, "max_abs_err": step_err, **timing}]}
     print(json.dumps(record))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

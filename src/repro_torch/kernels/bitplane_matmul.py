@@ -14,55 +14,29 @@ raises.  The module-level `launches` counts kernel launches, so a run can
 show that its path went through the kernel.
 
 The kernel is compiled by `nvcc` for ``sm_90a`` at first use, from the
-source in this package, into ``_build/`` beside it (keyed by a hash of
-the source), and called through its plain C function with `ctypes`.
+source in this package (`nvcc.build`), and called through its plain C
+function with `ctypes`.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
 from ..quant.bitplane import LANES, unpack
+from . import nvcc
 
 SOURCE = Path(__file__).with_name("csrc") / "bitplane_matmul.cu"
-BUILD_DIR = Path(__file__).with_name("_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches = 0          # kernel launches since the last reset (set it to 0)
 _lib = None
 
 
 def build() -> Path:
-    """Compile the kernel into a shared library, once per source hash.
-
-    Returns the library's path; `nvcc`'s own report (registers, shared
-    memory, spills) is kept beside it with the suffix ``.log``.
-    """
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"bitplane_matmul_{tag}.so"
-    if out.exists():
-        return out
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the bit-plane kernel is built "
-                           "with the CUDA toolkit on the GPU's machine")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)          # atomic: concurrent builders never race
-    return out
+    """Compile the kernel into a shared library, once per source hash
+    (`nvcc.build`).  Returns the library's path."""
+    return nvcc.build(SOURCE)[0]
 
 
 def _launcher():
