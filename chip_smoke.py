@@ -6,8 +6,9 @@
 Drives only the port (no JAX, nothing of `repro`).  Each phase prints its
 lines; any failure exits nonzero, and nothing is caught:
 
-  1. build the bit-plane kernel from `src/repro_torch/kernels/csrc` with
-     nvcc for sm_90a and print the build time;
+  1. build every kernel of the port from `src/repro_torch/kernels/csrc`
+     (six sources, one nvcc each, in parallel) for sm_90a and print the
+     build time and each kernel's registers, shared memory and spills;
   2. the kernel against its plain PyTorch version on the card, at the four
      SmolLM-360M projection shapes (M=4) and a ragged one, bits 4 and 8:
      exact on integer x with scale 1, else within the f32 bound for two
@@ -48,6 +49,25 @@ lines; any failure exits nonzero, and nothing is caught:
  10. the step kernel's time for one chunk dispatch (shared program, 4
      slots, nb = 16, T about 765) with CUDA events, beside its byte and
      dependency bounds and its plain version's time;
+ 11. the bit-serial and bulk-bitwise kernels (bit transpose and
+     untranspose, search-replace, RAID XOR, bit-serial reduce and matmul)
+     against their plain versions, bit for bit, at one, ragged and
+     block-multiple word counts; the reduce also against the int64 sum
+     rounded once; the bit-serial matmul at SmolLM-360M's four projection
+     shapes (M=4, 8x8 and 4x4 bits) and ragged ones, exact on integers and
+     within the f32 bound of `ref.bitserial_matmul_ref` when scaled;
+ 12. the paper's workloads composed through `kernels.ops` at real sizes,
+     with the six kernels' launch counts reset just before and read just
+     after: (a) search-replace of 2^27 16-bit records (bit_transpose ->
+     search_replace -> bit_untranspose, against torch.where); (b) RAID
+     rebuild of one of 7 data stripes of 2^24 words from the survivors and
+     parity; (c) reduction of 2^28 signed 8-bit values against the int64
+     sum; (d) one SmolLM-360M layer's 7 projections bit-serially at M=4,
+     8x8 bits, against the oracle and, on the same integers, exactly
+     against the bit-plane kernel;
+ 13. the six kernels' times at the phase-12 sizes (CUDA graph and events)
+     beside their bounds, their plain versions' and the one PyTorch call
+     that computes the same function where there is one;
 
 then one JSON line of kernel records, the card's name and power limit as
 nvidia-smi prints them, and the result line
@@ -70,6 +90,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+INT8_OPS_PER_S = 1.979e15      # H100 SXM int8 tensor cores, dense
 BITS = 8
 M_DECODE = 4
 # SmolLM-360M's packed projections (K, N) and how many of each a layer runs
@@ -103,17 +124,19 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def phase_build(nvcc, sources):
-    """Build every kernel of the port at once (one nvcc per source)."""
+def phase_build(nvcc, sources, tags):
+    """Build every kernel of the port at once (one nvcc per source), and
+    print nvcc's report of each kernel: registers, shared memory, spills."""
     t0 = time.perf_counter()
     libs = nvcc.build(*sources)
     dt = time.perf_counter() - t0
-    print(f"[1 build] {len(libs)} kernels in {dt:.2f} s, in parallel "
+    print(f"[1 build] {len(libs)} sources in {dt:.2f} s, in parallel "
           f"(nvcc {' '.join(nvcc.NVCC_FLAGS)})")
-    for tag, lib in zip(("1 build", "6 build"), libs):
+    for tag, lib in zip(tags, libs):
         print(f"[{tag}] {lib.name}")
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line or "smem" in line):
                 print(f"[{tag}]   {line.strip()}")
 
 
@@ -698,6 +721,441 @@ def _max_sm_clock_hz():
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
+# ---------------------------------------------------------------------------
+# the bit-serial and bulk-bitwise kernels (#3-#8), reached through
+# kernels.ops: the paper's Sec. III-E multiply, Sec. III-H swizzle and
+# Sec. IV-C search-replace, RAID rebuild and reduction
+# ---------------------------------------------------------------------------
+
+# kernel -> (its CUDA source, the TPU kernel it replaces)
+BITSERIAL_KERNELS = {
+    "bitserial_matmul": ("bitserial_matmul.cu",
+                         "src/repro/kernels/bitserial_matmul.py:58"),
+    "bitserial_reduce": ("bitserial_reduce.cu",
+                         "src/repro/kernels/bitserial_reduce.py:46"),
+    "bit_transpose": ("bit_transpose.cu",
+                      "src/repro/kernels/bit_transpose.py:34"),
+    "bit_untranspose": ("bit_transpose.cu",
+                        "src/repro/kernels/bit_transpose.py:63"),
+    "search_replace": ("bulk_bitwise.cu",
+                       "src/repro/kernels/bulk_bitwise.py:38"),
+    "raid_xor": ("bulk_bitwise.cu", "src/repro/kernels/bulk_bitwise.py:69"),
+}
+# 32-bit popcounts an SM issues a clock, cc 9.0 (CUDA C++ programming
+# guide, arithmetic instruction throughput table): not a bound of the
+# function, but the issue limit of the kernel's AND + POPC design
+POPC_PER_SM_CLOCK = 16
+SEARCH_RECORDS, SEARCH_BITS = 1 << 27, 16   # width of benchmarks/tpu_kernels.py:64
+RAID_STRIPES, RAID_WORDS = 8, 1 << 24       # 7 data stripes + parity, 64 MiB each
+REDUCE_VALUES, REDUCE_BITS = 1 << 28, 8
+SERIAL_BITS = 8                             # a = w = 8 for the projections
+
+
+class Bitserial:
+    """The four kernel modules of #3-#8 and their launch counts by name."""
+
+    def __init__(self, bt, bb, bsr, bsm):
+        self.bt, self.bb, self.bsr, self.bsm = bt, bb, bsr, bsm
+        self.err = dict.fromkeys(BITSERIAL_KERNELS, 0)
+
+    def reset(self):
+        for counts in (self.bt.launches, self.bb.launches):
+            for name in counts:
+                counts[name] = 0
+        self.bsr.launches = 0
+        self.bsm.launches = 0
+
+    def counts(self):
+        return {**self.bt.launches, **self.bb.launches,
+                "bitserial_reduce": self.bsr.launches,
+                "bitserial_matmul": self.bsm.launches}
+
+    def same(self, name, what, got, want):
+        """Fail unless the kernel's output equals the plain version's."""
+        torch.cuda.synchronize()
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        for a, b in pairs:
+            if a.shape != b.shape or a.dtype != b.dtype:
+                fail(f"{name} {what}: kernel {a.dtype} {tuple(a.shape)}, "
+                     f"plain {b.dtype} {tuple(b.shape)}")
+            d = float((a.double() - b.double()).abs().max()) \
+                if a.numel() else 0.0
+            self.err[name] = max(self.err[name], d)
+            if not torch.equal(a, b):
+                fail(f"{name} {what}: kernel and plain version differ "
+                     f"(max |d| {d:.3e})")
+
+
+def _signed_values(gen, dev, bits, n):
+    """n seeded signed `bits`-bit integers, int32."""
+    lo = -(1 << (bits - 1))
+    hi = (1 << (bits - 1)) if bits < 32 else (1 << 31) - 1
+    return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+def _pack_rows(ops, qx, bits):
+    """[M, K] ints -> x_packed [M, bits, K/32] through the bit transpose
+    (the rows are contiguous runs of K/32 words of each plane)."""
+    m, k = qx.shape
+    return ops.bit_transpose(qx.reshape(-1), bits=bits) \
+        .view(bits, m, k // 32).transpose(0, 1).contiguous()
+
+
+def _serial_bound(qx, qw, sx, sw):
+    """The f32 bound for two orders of one sum, on the dequantised
+    product: (K + 2) * 2^-23 * (|qx| @ |qw|) * sx * sw."""
+    k = qx.shape[1]
+    mag = qx.abs().double() @ qw.abs().double()
+    return (k + 2) * 2.0 ** -23 * mag * sx.double() * sw.double(), mag
+
+
+def phase_bitserial_vs_plain(ks, ops, ref, bitplane, dev):
+    """#3-#8 against their plain versions on the card, bit for bit, at
+    word counts of one, ragged (17, 300, 24581) and block-multiple (8192)
+    size; #4 also against the int64 sum; #3 at SmolLM-360M's projection
+    shapes and ragged ones."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    t0 = time.perf_counter()
+    cases = 0
+    for w in (1, 17, 300, 8192, 3 * 8192 + 5):
+        for bits in (1, 6, 8, 16, 32):
+            what = f"W={w} bits={bits}"
+            vals = _signed_values(gen, dev, bits, 32 * w)
+            planes = ks.bt.bit_transpose(vals, bits=bits)
+            ks.same("bit_transpose", what, planes,
+                    ks.bt.bit_transpose_plain(vals, bits=bits))
+            for signed in (True, False):
+                ks.same("bit_untranspose", f"{what} signed={signed}",
+                        ks.bt.bit_untranspose(planes, bits=bits,
+                                              signed=signed),
+                        ks.bt.bit_untranspose_plain(planes, bits=bits,
+                                                    signed=signed))
+            if not torch.equal(ks.bt.bit_untranspose(planes, bits=bits),
+                               vals):
+                fail(f"bit transpose round trip lost values at {what}")
+            key = int(vals[int(torch.randint(0, 32 * w, (1,), generator=gen,
+                                              device=dev))])
+            ks.same("search_replace", what,
+                    ks.bb.search_replace(planes, bits=bits, key=key),
+                    ks.bb.search_replace_plain(planes, bits=bits, key=key))
+            total = ks.bsr.bitserial_reduce(planes, bits=bits)
+            ks.same("bitserial_reduce", what, total,
+                    ks.bsr.bitserial_reduce_plain(planes, bits=bits))
+            exact = torch.sum(vals, dtype=torch.int64).to(torch.float32)
+            if not torch.equal(total, exact):
+                fail(f"bitserial_reduce at {what}: {float(total)} is not "
+                     f"the int64 sum rounded once, {float(exact)}")
+            cases += 5
+        for d in (1, 3, 8):
+            stripes = torch.randint(-2**31, 2**31 - 1, (d, w), generator=gen,
+                                    device=dev, dtype=torch.int32)
+            ks.same("raid_xor", f"D={d} W={w}", ks.bb.raid_xor(stripes),
+                    ks.bb.raid_xor_plain(stripes))
+            cases += 1
+    print(f"[11 bitserial] transpose, untranspose (signed and unsigned), "
+          f"search-replace, reduce and RAID XOR at W in 1/17/300/8192/24581 "
+          f"words, bits 1/6/8/16/32, D 1/3/8: kernel = plain bit for bit in "
+          f"{cases} cases; reduce = the int64 sum rounded once to f32")
+    smollm = [(M_DECODE, k, n) for k, n in SMOLLM_SHAPES]
+    worst = 0.0
+    for m, k, n in smollm + [RAGGED, (19, 96, 70), (8, 512, 128)]:
+        pairs = [(8, 8), (4, 4)]
+        if (m, k, n) not in smollm:
+            pairs += [(2, 8), (5, 4), (1, 1)]
+        for a, wb in pairs:
+            qx = _signed_values(gen, dev, a, m * k).view(m, k)
+            qw = _signed_values(gen, dev, wb, k * n).view(k, n)
+            xp = _pack_rows(ops, qx, a)
+            wp = bitplane.pack(qw, wb, axis=0)
+            ones_m = torch.ones((m, 1), device=dev)
+            ones_n = torch.ones((1, n), device=dev)
+            y = ks.bsm.bitserial_matmul(xp, wp, ones_m, ones_n, a_bits=a,
+                                        w_bits=wb)
+            what = f"M={m} K={k} N={n} {a}x{wb} bits"
+            ks.same("bitserial_matmul", f"{what} integer", y,
+                    ks.bsm.bitserial_matmul_plain(xp, wp, ones_m, ones_n,
+                                                  a_bits=a, w_bits=wb))
+            exact = (qx.long().cpu() @ qw.long().cpu()).to(torch.float32)
+            if not torch.equal(y.cpu(), exact):
+                fail(f"bitserial_matmul {what}: not the exact integer "
+                     f"product")
+            sx = torch.rand((m, 1), generator=gen, device=dev) * 0.09 + 0.01
+            sw = torch.rand((1, n), generator=gen, device=dev) * 0.09 + 0.01
+            y = ks.bsm.bitserial_matmul(xp, wp, sx, sw, a_bits=a, w_bits=wb)
+            ks.same("bitserial_matmul", f"{what} scaled", y,
+                    ks.bsm.bitserial_matmul_plain(xp, wp, sx, sw, a_bits=a,
+                                                  w_bits=wb))
+            y_ref = ref.bitserial_matmul_ref(xp, wp, sx, sw, a_bits=a,
+                                             w_bits=wb)
+            bound, _ = _serial_bound(qx, qw, sx, sw)
+            ratio = float(((y - y_ref).abs().double() / bound).max())
+            worst = max(worst, ratio)
+            if ratio > 1:
+                fail(f"bitserial_matmul {what}: beyond the f32 bound of the "
+                     f"oracle")
+    print(f"[11 bitserial] bitserial_matmul at SmolLM's four shapes (M=4, "
+          f"8x8 and 4x4 bits) and (3,64,100), (19,96,70), (8,512,128) at "
+          f"five bit pairs: kernel = plain bit for bit, integer operands "
+          f"exact, scaled results within {worst:.3f} of the f32 bound "
+          f"against ref.bitserial_matmul_ref; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_workloads(ks, ops, ref, bitplane, dev):
+    """The paper's workloads composed through `ops` at real sizes.  The
+    launch counts of #3-#8 are reset just before and read just after."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # ---- the bit-serial path, counted ----
+    ks.reset()
+    # (a) database search-replace on 2^27 16-bit records
+    recs = torch.randint(0, 1 << SEARCH_BITS, (SEARCH_RECORDS,),
+                         generator=gen, device=dev, dtype=torch.int32)
+    key = int(recs[int(torch.randint(0, SEARCH_RECORDS, (1,), generator=gen,
+                                     device=dev))])
+    planes = ops.bit_transpose(recs, bits=SEARCH_BITS)
+    out, mask = ops.search_replace(planes, bits=SEARCH_BITS, key=key)
+    back = ops.bit_untranspose(out, bits=SEARCH_BITS, signed=False)
+    # (b) RAID rebuild: 7 data stripes, their parity, stripe 3 lost
+    data = torch.randint(-2**31, 2**31 - 1, (RAID_STRIPES - 1, RAID_WORDS),
+                         generator=gen, device=dev, dtype=torch.int32)
+    parity = ops.raid_xor(data)
+    survivors = torch.cat([data[:3], data[4:], parity[None]])
+    rebuilt = ops.raid_xor(survivors)
+    # (c) reduction of 2^28 signed 8-bit values
+    vals = _signed_values(gen, dev, REDUCE_BITS, REDUCE_VALUES)
+    vplanes = ops.bit_transpose(vals, bits=REDUCE_BITS)
+    total = ops.bitserial_reduce(vplanes, bits=REDUCE_BITS)
+    # (d) one SmolLM-360M layer's seven projections, bit-serial, M = 4
+    projections = []
+    for (k, n), count in SMOLLM_SHAPES.items():
+        for _ in range(count):
+            x = torch.randn((M_DECODE, k), generator=gen, device=dev)
+            w = torch.randn((k, n), generator=gen, device=dev)
+            qx, sx = bitplane.quantize(x, SERIAL_BITS, axis=1)
+            qw, sw = bitplane.quantize(w, SERIAL_BITS, axis=0)
+            xp = _pack_rows(ops, qx, SERIAL_BITS)
+            wp = bitplane.pack(qw, SERIAL_BITS, axis=0)
+            y = ops.bitserial_matmul(xp, wp, sx, sw, a_bits=SERIAL_BITS,
+                                     w_bits=SERIAL_BITS)
+            y_int = ops.bitserial_matmul(
+                xp, wp, torch.ones_like(sx), torch.ones_like(sw),
+                a_bits=SERIAL_BITS, w_bits=SERIAL_BITS)
+            projections.append((k, n, qx, sx, qw, sw, xp, wp, y, y_int))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launched = ks.counts()
+    # ---- end of the counted path ----
+    print(f"[12 workloads] {dt:.2f} s; kernel launches {launched}")
+    expect = {"bit_transpose": 2 + 7, "bit_untranspose": 1,
+              "search_replace": 1, "raid_xor": 2, "bitserial_reduce": 1,
+              "bitserial_matmul": 14}
+    if launched != expect:
+        fail(f"the workloads did not run through every kernel as expected "
+             f"({expect})")
+
+    hit = recs == key
+    shifts = torch.arange(32, device=dev, dtype=torch.int32)
+    marked = ((mask[:, None] >> shifts) & 1).reshape(-1).bool()
+    replaced = torch.equal(back, torch.where(hit, 0, recs))
+    print(f"[12 workloads] (a) search-replace: {SEARCH_RECORDS} "
+          f"{SEARCH_BITS}-bit records ({4 * SEARCH_BITS * planes.shape[1] >> 20}"
+          f" MiB of planes), key {key} with {int(hit.sum())} matches: "
+          f"untransposed output = torch.where(recs == key, 0, recs) "
+          f"{replaced}, mask marks exactly the matches "
+          f"{torch.equal(marked, hit)}")
+    if not (replaced and torch.equal(marked, hit) and int(hit.sum()) > 0):
+        fail("search-replace workload is wrong")
+    ks.same("bit_transpose", "(a)", planes,
+            ks.bt.bit_transpose_plain(recs, bits=SEARCH_BITS))
+    ks.same("search_replace", "(a)", (out, mask),
+            ks.bb.search_replace_plain(planes, bits=SEARCH_BITS, key=key))
+    ks.same("bit_untranspose", "(a)", back,
+            ks.bt.bit_untranspose_plain(out, bits=SEARCH_BITS, signed=False))
+
+    ok = torch.equal(rebuilt, data[3])
+    print(f"[12 workloads] (b) RAID: {RAID_STRIPES} stripes of "
+          f"{RAID_WORDS} words ({4 * RAID_WORDS >> 20} MiB each), data "
+          f"stripe 3 lost: raid_xor of the {survivors.shape[0]} survivors "
+          f"returns it {ok}")
+    if not ok:
+        fail("RAID rebuild did not return the lost stripe")
+    ks.same("raid_xor", "(b) parity", parity, ks.bb.raid_xor_plain(data))
+    ks.same("raid_xor", "(b) rebuild", rebuilt,
+            ks.bb.raid_xor_plain(survivors))
+
+    exact = int(torch.sum(vals, dtype=torch.int64))
+    got = float(total)
+    half_ulp = float(np.spacing(np.float32(abs(exact)))) / 2
+    rounded = torch.equal(total, torch.tensor(exact, device=dev)
+                          .to(torch.float32))
+    print(f"[12 workloads] (c) reduction: {REDUCE_VALUES} signed "
+          f"{REDUCE_BITS}-bit values ({4 * REDUCE_BITS * vplanes.shape[1] >> 20}"
+          f" MiB of planes): {got:.1f} against torch.sum int64 {exact}: "
+          f"|d| {abs(got - exact):.1f} <= half an f32 ulp {half_ulp:.1f}; "
+          f"equal to the int64 sum rounded once {rounded}")
+    if abs(got - exact) > half_ulp or not rounded:
+        fail("bitserial_reduce is not within one f32 rounding of the sum")
+    ks.same("bitserial_reduce", "(c)", total,
+            ks.bsr.bitserial_reduce_plain(vplanes, bits=REDUCE_BITS))
+
+    worst = 0.0
+    for k, n, qx, sx, qw, sw, xp, wp, y, y_int in projections:
+        y_ref = ref.bitserial_matmul_ref(xp, wp, sx, sw, a_bits=SERIAL_BITS,
+                                         w_bits=SERIAL_BITS)
+        bound, mag = _serial_bound(qx, qw, sx, sw)
+        worst = max(worst, float(((y - y_ref).abs().double() / bound).max()))
+        # every partial sum of either kernel is an integer below 2^24 in
+        # magnitude, so both are exact and must be equal
+        if float(mag.max()) >= 2 ** 24:
+            fail(f"projection ({k}, {n}): |qx| @ |qw| reaches 2^24")
+        y_bp = ops.bitplane_matmul(qx.to(torch.float32), wp,
+                                   torch.ones_like(sw), bits=SERIAL_BITS)
+        if not (torch.isfinite(y).all() and torch.equal(y_int, y_bp)):
+            fail(f"projection ({k}, {n}): bit-serial and bit-plane kernels "
+                 f"differ on the same integers")
+        ks.same("bitserial_matmul", f"(d) ({k}, {n})", y,
+                ks.bsm.bitserial_matmul_plain(xp, wp, sx, sw,
+                                              a_bits=SERIAL_BITS,
+                                              w_bits=SERIAL_BITS))
+    print(f"[12 workloads] (d) one SmolLM-360M layer's 7 projections at M="
+          f"{M_DECODE}, {SERIAL_BITS}x{SERIAL_BITS} bits (activations "
+          f"quantised per row and packed by bit_transpose): within "
+          f"{worst:.3f} of the f32 bound against ref.bitserial_matmul_ref, "
+          f"and equal to kernels.bitplane_matmul on the same integers")
+    if worst > 1:
+        fail("bit-serial projections beyond the f32 bound of the oracle")
+    return launched, {"recs": recs, "key": key, "planes": planes,
+                      "out": out, "data": data, "survivors": survivors,
+                      "vals": vals, "vplanes": vplanes,
+                      "projections": projections}
+
+
+def _time_events(fn, reps):
+    """Device time of one ``fn()`` from CUDA events around `reps` calls,
+    after one warm-up call (for the plain versions, whose allocations do
+    not belong in a CUDA graph)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_bitserial_timing(ks, ops, bitplane, data, dev, smi):
+    """#3-#8 at the phase-12 sizes: kernel (CUDA graph, events), plain
+    version (events), bound and the one library call where there is one."""
+    rows = {}
+
+    def row(name, t_kernel, t_plain, t_lib, nbytes, t_ops=0.0, note=""):
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        rows[name] = {"ms": t_kernel, "plain_ms": t_plain,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations", "library_ms": t_lib}
+        lib = "none" if t_lib is None else f"{t_lib * 1e3:.2f} us"
+        print(f"[13 time] {name} {note}: kernel {t_kernel * 1e3:.2f} us, "
+              f"bound {rows[name]['bound_ms'] * 1e3:.2f} us "
+              f"({rows[name]['bound_by']}; bytes {t_bytes * 1e3:.2f} us, "
+              f"{nbytes / t_kernel / 1e6:.0f} GB/s achieved), plain "
+              f"{t_plain * 1e3:.1f} us, library {lib}; {smi}")
+
+    recs, key, planes = data["recs"], data["key"], data["planes"]
+    out, words = data["out"], data["planes"].shape[1]
+    b = SEARCH_BITS
+    note = f"({SEARCH_RECORDS} {b}-bit records)"
+    row("bit_transpose",
+        _time_ms(lambda i: ops.bit_transpose(recs, bits=b), 3, 3),
+        _time_events(lambda: ks.bt.bit_transpose_plain(recs, bits=b), 2),
+        None, 4 * recs.numel() + 4 * b * words, note=note)
+    row("bit_untranspose",
+        _time_ms(lambda i: ops.bit_untranspose(out, bits=b, signed=False),
+                 3, 3),
+        _time_events(lambda: ks.bt.bit_untranspose_plain(out, bits=b,
+                                                         signed=False), 2),
+        None, 4 * b * words + 4 * recs.numel(), note=note)
+    row("search_replace",
+        _time_ms(lambda i: ops.search_replace(planes, bits=b, key=key), 3, 3),
+        _time_events(lambda: ks.bb.search_replace_plain(planes, bits=b,
+                                                        key=key), 3),
+        _time_ms(lambda i: torch.where(recs == key, 0, recs), 3, 3),
+        4 * b * words + 4 * (b + 1) * words,
+        note=f"{note}; library torch.where(recs == key, 0, recs)")
+    survivors = data["survivors"]
+    d, w = survivors.shape
+    row("raid_xor", _time_ms(lambda i: ops.raid_xor(survivors), 3, 3),
+        _time_events(lambda: ks.bb.raid_xor_plain(survivors), 3), None,
+        4 * (d + 1) * w, note=f"(D={d} survivors of {w} words)")
+    vals, vplanes = data["vals"], data["vplanes"]
+    row("bitserial_reduce",
+        _time_ms(lambda i: ops.bitserial_reduce(vplanes, bits=REDUCE_BITS),
+                 3, 3),
+        _time_events(lambda: ks.bsr.bitserial_reduce_plain(
+            vplanes, bits=REDUCE_BITS), 3),
+        _time_ms(lambda i: torch.sum(vals, dtype=torch.int64), 3, 3),
+        4 * vplanes.numel(),
+        note=f"({REDUCE_VALUES} {REDUCE_BITS}-bit values; library "
+             f"torch.sum(values, dtype=torch.int64))")
+
+    # #3: one layer's seven projections, each shape timed once, L2-cold
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = _max_sm_clock_hz()
+    a = SERIAL_BITS
+    seen, totals = set(), [0.0] * 5
+    for k, n, qx, sx, qw, sw, xp, wp, _, _ in data["projections"]:
+        per_layer = SMOLLM_SHAPES[(k, n)]
+        if (k, n) in seen:
+            continue
+        seen.add((k, n))
+        wc = [wp.clone() for _ in range(_copies(wp.numel() * 4))]
+        xd = bitplane.dequantize(qx, sx)
+        wd = bitplane.dequantize(qw, sw)
+        wdc = [wd.clone() for _ in range(_copies(wd.numel() * 4))]
+        t_kernel = _time_ms(lambda i: ops.bitserial_matmul(
+            xp, wc[i % len(wc)], sx, sw, a_bits=a, w_bits=a), len(wc))
+        t_plain = _time_events(lambda: ks.bsm.bitserial_matmul_plain(
+            xp, wp, sx, sw, a_bits=a, w_bits=a), 5)
+        t_lib = _time_ms(lambda i: torch.matmul(xd, wdc[i % len(wdc)]),
+                         len(wdc))
+        # the function is M*K*N products of a-bit by a-bit integers: two
+        # operations each at the int8 tensor-core rate
+        t_ops = 1e3 * 2 * M_DECODE * k * n / INT8_OPS_PER_S
+        nbytes = a / 8 * k * n + 4 * xp.numel() + 4 * M_DECODE * n + \
+            4 * (M_DECODE + n)
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        popc = M_DECODE * (k // 32) * n * a * a
+        t_popc = 1e3 * popc / (POPC_PER_SM_CLOCK * sms * clock)
+        print(f"[13 time] bitserial_matmul M={M_DECODE} K={k} N={n} "
+              f"{a}x{a} bits: kernel {t_kernel * 1e3:.2f} us, bound "
+              f"{max(t_ops, t_bytes) * 1e3:.2f} us (bytes {t_bytes * 1e3:.2f} "
+              f"us; int8 products {t_ops * 1e3:.3f} us), plain "
+              f"{t_plain * 1e3:.1f} us, torch.matmul on the dequantised f32 "
+              f"operands {t_lib * 1e3:.2f} us; design note: this kernel's "
+              f"{popc} popcounts take {t_popc * 1e3:.2f} us at "
+              f"{POPC_PER_SM_CLOCK} an SM a clock on {sms} SMs at "
+              f"{clock / 1e9:.3f} GHz; {smi}")
+        for i, v in enumerate((t_kernel, t_plain, t_lib, t_bytes, t_ops)):
+            totals[i] += per_layer * v
+        del wc, wdc
+    t_kernel, t_plain, t_lib, t_bytes, t_ops = totals
+    rows["bitserial_matmul"] = {
+        "ms": t_kernel, "plain_ms": t_plain, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": t_lib}
+    print(f"[13 time] bitserial_matmul, one layer's 7 projections: kernel "
+          f"{t_kernel * 1e3:.2f} us, bound {max(t_bytes, t_ops) * 1e3:.2f} "
+          f"us ({rows['bitserial_matmul']['bound_by']}), plain "
+          f"{t_plain * 1e3:.1f} us, torch.matmul {t_lib * 1e3:.2f} us; {smi}")
+    return rows
+
+
 def main():
     sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
@@ -705,8 +1163,12 @@ def main():
               "needs a CUDA GPU", file=sys.stderr)
         return 1
     from repro_torch import configs
+    from repro_torch.kernels import bit_transpose as bt
     from repro_torch.kernels import bitplane_matmul as bpm
-    from repro_torch.kernels import comefa_sim, nvcc
+    from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import bitserial_reduce as bsr
+    from repro_torch.kernels import bulk_bitwise as bb
+    from repro_torch.kernels import comefa_sim, nvcc, ops, ref
     from repro_torch.kernels import comefa_step as cs
     from repro_torch.models import common, lm
     from repro_torch.obs import metrics
@@ -720,7 +1182,10 @@ def main():
     t_start = time.perf_counter()
     print(f"chip_smoke: torch {torch.__version__} (CUDA "
           f"{torch.version.cuda}) on {torch.cuda.get_device_name(0)}; {smi}")
-    phase_build(nvcc, (bpm.SOURCE, cs.SOURCE))
+    ks = Bitserial(bt, bb, bsr, bsm)
+    phase_build(nvcc, (bpm.SOURCE, cs.SOURCE, bt.SOURCE, bb.SOURCE,
+                       bsr.SOURCE, bsm.SOURCE),
+                ("1 build", "6 build") + ("11 build",) * 4)
     worst = phase_kernel_vs_plain(bpm, bitplane, dev)
     phase_reduced(bpm, configs, common, lm, engine, dev)
     launched, step_s = phase_full(bpm, configs, common, lm, engine, dev)
@@ -737,6 +1202,14 @@ def main():
     timing = phase_step_timing(cs, comefa_sim, comefa_exec, dev, smi)
     print(f"[10 time] grid decode at depth {GRID_LAYERS}: {tok_s:.3f} "
           f"tokens/s, {per_layer_wave:.3f} s per layer-wave; {smi}")
+    ks.reset()
+    phase_bitserial_vs_plain(ks, ops, ref, bitplane, dev)
+    in_11 = ks.counts()
+    serial_launched, data = phase_workloads(ks, ops, ref, bitplane, dev)
+    print(f"[12 workloads] launches in phase 11: {in_11}; in phase 12: "
+          f"{serial_launched}")
+    serial = phase_bitserial_timing(ks, ops, bitplane, data, dev, smi)
+    del data
     record = {"kernels": [
         {"name": "bitplane_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
@@ -746,6 +1219,12 @@ def main():
          "source": "src/repro_torch/kernels/csrc/comefa_step.cu",
          "replaces": "src/repro/kernels/comefa_step.py:80",
          "launches": step_launched, "max_abs_err": step_err, **timing}]}
+    for name, (source, replaces) in BITSERIAL_KERNELS.items():
+        record["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": serial_launched[name],
+            "max_abs_err": ks.err[name], **serial[name]})
     print(json.dumps(record))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

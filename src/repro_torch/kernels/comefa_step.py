@@ -46,12 +46,9 @@ def build() -> Path:
 def _launcher():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.comefa_step_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = nvcc.load(SOURCE, {"comefa_step_launch":
+                                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                                  + [ctypes.c_void_p]})
     return _lib.comefa_step_launch
 
 

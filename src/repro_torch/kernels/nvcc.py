@@ -5,16 +5,18 @@ library under ``_build/`` beside this file, keyed by a hash of the
 source, at first use; the kernels' wrappers load it with `ctypes`.
 `build` starts one `nvcc` per missing library, all at once, and waits for
 them; `nvcc`'s own report (registers, shared memory, spills) is kept
-beside each library with the suffix ``.log``.
+beside each library with the suffix ``.log``.  `load` builds one source
+and opens its library with its C functions' argument types declared.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List
+from typing import Dict, List, Sequence
 
 BUILD_DIR = Path(__file__).with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -60,3 +62,15 @@ def build(*sources: Path) -> List[Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs
+
+
+def load(source: Path, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """Build `source` if needed and open its library, declaring each named
+    C function's argument types; every one returns an int (a cudaError_t).
+    """
+    lib = ctypes.CDLL(str(build(source)[0]))
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,6 +1,9 @@
 """The port on a CUDA GPU: the bit-plane kernel against its plain version,
-a reduced model on the card against the CPU, and the CoMeFa step kernel
-against its plain version and the uint8 reference engine.
+a reduced model on the card against the CPU, the CoMeFa step kernel
+against its plain version and the uint8 reference engine, and the
+bit-serial and bulk-bitwise kernels (bit transpose and untranspose,
+search-replace, RAID XOR, bit-serial reduce and matmul) against their
+plain versions, bit for bit.
 
 Every test here needs the card: it carries the `cuda` marker and skips
 where `torch.cuda.is_available()` is False.  The file imports no JAX, so
@@ -21,8 +24,12 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core.comefa import ComefaGrid, engine_packed, isa
+from repro_torch.kernels import bit_transpose as bt
 from repro_torch.kernels import bitplane_matmul as bpm
-from repro_torch.kernels import comefa_sim
+from repro_torch.kernels import bitserial_matmul as bsm
+from repro_torch.kernels import bitserial_reduce as bsr
+from repro_torch.kernels import bulk_bitwise as bb
+from repro_torch.kernels import comefa_sim, ops
 from repro_torch.kernels import comefa_step as cs
 from repro_torch.models import common as cm
 from repro_torch.models import lm
@@ -223,3 +230,144 @@ def test_grid_executor_on_card_matches_reference(cuda):
 
 def test_cuda_engine_is_the_default_on_the_card(cuda):
     assert ComefaGrid(2, device=cuda).engine.name == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# the bit-serial and bulk-bitwise kernels
+# ---------------------------------------------------------------------------
+
+def _signed(rng, bits, n, dev):
+    lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+    return torch.as_tensor(rng.integers(lo, hi + 1, size=n).astype(np.int32),
+                           device=dev)
+
+
+@pytest.mark.parametrize("w", [17, 8192])
+@pytest.mark.parametrize("bits", [1, 8, 16, 32])
+def test_bit_transpose_kernels_match_plain(cuda, w, bits):
+    x = _signed(np.random.default_rng(w + bits), bits, 32 * w, cuda)
+    before = dict(bt.launches)
+    planes = bt.bit_transpose(x, bits=bits)
+    assert torch.equal(planes, bt.bit_transpose_plain(x, bits=bits))
+    for signed in (True, False):
+        assert torch.equal(
+            bt.bit_untranspose(planes, bits=bits, signed=signed),
+            bt.bit_untranspose_plain(planes, bits=bits, signed=signed))
+    assert torch.equal(bt.bit_untranspose(planes, bits=bits), x)
+    assert bt.launches["bit_transpose"] == before["bit_transpose"] + 1
+    assert bt.launches["bit_untranspose"] == before["bit_untranspose"] + 3
+
+
+@pytest.mark.parametrize("w", [300, 8192])
+@pytest.mark.parametrize("bits", [1, 12, 32])
+def test_search_replace_kernel_matches_plain(cuda, w, bits):
+    rng = np.random.default_rng(w * bits)
+    planes = torch.as_tensor(rng.integers(-2**31, 2**31, size=(bits, w))
+                             .astype(np.int32), device=cuda)
+    planes[:, :7] = 0                      # records equal to key 0
+    before = bb.launches["search_replace"]
+    for key in (0, int(rng.integers(0, 1 << min(bits, 31))), -1):
+        got = bb.search_replace(planes, bits=bits, key=key)
+        want = bb.search_replace_plain(planes, bits=bits, key=key)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert bb.launches["search_replace"] == before + 3
+
+
+@pytest.mark.parametrize("d", [1, 5, 8])
+@pytest.mark.parametrize("w", [300, 8192])
+def test_raid_xor_kernel_matches_plain(cuda, d, w):
+    stripes = torch.as_tensor(np.random.default_rng(d + w).integers(
+        -2**31, 2**31, size=(d, w)).astype(np.int32), device=cuda)
+    before = bb.launches["raid_xor"]
+    assert torch.equal(bb.raid_xor(stripes), bb.raid_xor_plain(stripes))
+    assert bb.launches["raid_xor"] == before + 1
+
+
+@pytest.mark.parametrize("w", [17, 8192])
+@pytest.mark.parametrize("bits", [1, 8, 16, 32])
+def test_bitserial_reduce_kernel_matches_plain(cuda, w, bits):
+    x = _signed(np.random.default_rng(3 * w + bits), bits, 32 * w, cuda)
+    planes = bt.bit_transpose_plain(x, bits=bits)
+    before = bsr.launches
+    got = bsr.bitserial_reduce(planes, bits=bits)
+    assert bsr.launches == before + 1
+    assert torch.equal(got, bsr.bitserial_reduce_plain(planes, bits=bits))
+    assert torch.equal(got, torch.sum(x, dtype=torch.int64)
+                       .to(torch.float32))
+
+
+@pytest.mark.parametrize("a_bits,w_bits", [(8, 8), (4, 4), (2, 8), (5, 1)])
+@pytest.mark.parametrize("m,k,n", [(4, 960, 320), (4, 2560, 960),
+                                   (8, 512, 128), (3, 64, 100)])
+def test_bitserial_matmul_kernel_matches_plain(cuda, m, k, n, a_bits,
+                                               w_bits):
+    rng = np.random.default_rng(m + k + n + a_bits)
+    qx = _signed(rng, a_bits, m * k, cuda).view(m, k)
+    qw = _signed(rng, w_bits, k * n, cuda).view(k, n)
+    xp = bp.pack(qx, a_bits, axis=1).movedim(0, 1).contiguous()
+    wp = bp.pack(qw, w_bits, axis=0)
+    sx = torch.as_tensor(rng.uniform(0.01, 0.1, (m, 1)).astype(np.float32),
+                         device=cuda)
+    sw = torch.as_tensor(rng.uniform(0.01, 0.1, (1, n)).astype(np.float32),
+                         device=cuda)
+    ones_m, ones_n = torch.ones((m, 1), device=cuda), torch.ones((1, n),
+                                                                 device=cuda)
+    before = bsm.launches
+    y_int = bsm.bitserial_matmul(xp, wp, ones_m, ones_n, a_bits=a_bits,
+                                 w_bits=w_bits)
+    exact = (qx.long().cpu() @ qw.long().cpu()).to(torch.float32)
+    assert torch.equal(y_int.cpu(), exact)
+    y = bsm.bitserial_matmul(xp, wp, sx, sw, a_bits=a_bits, w_bits=w_bits)
+    assert torch.equal(y, bsm.bitserial_matmul_plain(
+        xp, wp, sx, sw, a_bits=a_bits, w_bits=w_bits))
+    assert bsm.launches == before + 2
+
+
+def test_bitserial_equals_bitplane_on_integers_on_card(cuda):
+    rng = np.random.default_rng(4)
+    m, k, n, bits = 4, 960, 320, 8
+    qx = torch.as_tensor(rng.integers(-128, 128, (m, k)).astype(np.int32),
+                         device=cuda)
+    qw = _signed(rng, bits, k * n, cuda).view(k, n)
+    wp = bp.pack(qw, bits, axis=0)
+    xp = ops.bit_transpose(qx.reshape(-1), bits=8).view(8, m, k // 32) \
+        .transpose(0, 1).contiguous()
+    y1 = ops.bitplane_matmul(qx.to(torch.float32), wp,
+                             torch.ones((1, n), device=cuda), bits=bits)
+    y2 = ops.bitserial_matmul(xp, wp, torch.ones((m, 1), device=cuda),
+                              torch.ones((1, n), device=cuda), a_bits=8,
+                              w_bits=bits)
+    assert torch.equal(y1, y2)
+
+
+def test_search_replace_round_trip_on_card(cuda):
+    bits = 16
+    recs = torch.as_tensor(np.random.default_rng(9).integers(
+        0, 1 << 12, size=32 * 5000).astype(np.int32), device=cuda)
+    key = int(recs[77])
+    out, mask = ops.search_replace(ops.bit_transpose(recs, bits=bits),
+                                   bits=bits, key=key)
+    back = ops.bit_untranspose(out, bits=bits, signed=False)
+    assert torch.equal(back, torch.where(recs == key, 0, recs))
+    hits = ops.bit_untranspose(mask[None], bits=1, signed=False)
+    assert torch.equal(hits.bool(), recs == key)
+
+
+def test_new_kernels_raise_instead_of_falling_back(cuda):
+    x = torch.zeros(48, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        bt.bit_transpose(x, bits=8)
+    planes = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        bb.raid_xor(planes.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        bb.search_replace(torch.zeros((4, 8), dtype=torch.int32,
+                                      device=cuda).T, bits=8, key=1)
+    with pytest.raises(ValueError, match=r"\[4, W\]"):
+        bsr.bitserial_reduce(planes, bits=4)
+    xp = torch.zeros((2, 4, 2), dtype=torch.int32, device=cuda)
+    wp = torch.zeros((4, 2, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="different devices"):
+        bsm.bitserial_matmul(xp, wp, torch.ones((2, 1)),
+                             torch.ones((1, 8), device=cuda), a_bits=4,
+                             w_bits=4)
