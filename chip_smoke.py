@@ -31,8 +31,9 @@ lines; any failure exits nonzero, and nothing is caught:
   7. the step kernel against its plain version (the packed torch scan) and
      the uint8 `reference` engine on the card: seeded random programs,
      shared and per-slot, chain both ways, run_programs with latch resets
-     both ways, nb in {1, 2, 16}, plus real chunk programs at the main
-     path's shapes; mem, carry and mask must be bit-identical;
+     both ways, nb in {1, 2, 6, 7, 16, 17} (warps of six blocks ending
+     exactly, early and one block over), plus real chunk programs at the
+     main path's shapes; mem, carry and mask must be bit-identical;
   8. the grid path: full-width SmolLM-360M (d_model 960, d_ff 2560, 15/5
      heads, vocab 49152, bf16, 8-bit planes, random seeded params) at
      full depth (32 layers), served by `serve_continuous` with 4 staggered
@@ -46,16 +47,20 @@ lines; any failure exits nonzero, and nothing is caught:
      the tiny serving config of `benchmarks/sim_speed.py` (vocab 64, one
      layer, d_model 32, 6 staggered requests over 2 slots), bit-exact
      against the reference backend;
- 10. the step kernel's time for one chunk dispatch (shared program, 4
-     slots, nb = 16, T about 765) with CUDA events, beside its byte and
-     dependency bounds and its plain version's time;
+ 10. the step kernel's time for one chunk dispatch (shared program,
+     decoded once as the grid's cache does, 4 slots, nb = 16, T = 752)
+     with CUDA events, beside its byte and dependency bounds and its
+     plain version's time;
  11. the bit-serial and bulk-bitwise kernels (bit transpose and
      untranspose, search-replace, RAID XOR, bit-serial reduce and matmul)
      against their plain versions, bit for bit, at one, ragged and
      block-multiple word counts; the reduce also against the int64 sum
      rounded once; the bit-serial matmul at SmolLM-360M's four projection
      shapes (M=4, 8x8 and 4x4 bits) and ragged ones, exact on integers and
-     within the f32 bound of `ref.bitserial_matmul_ref` when scaled;
+     within the f32 bound of `ref.bitserial_matmul_ref` when scaled, and
+     over its binary-MMA tiling: M in {1, 4, 5, 16, 17, 64}, K in {32, 96,
+     256, 960, 2560}, N in {1, 8, 100, 320, 2560}, a and w in {1, 3, 8},
+     exact on integers and equal to the plain version when scaled;
  12. the paper's workloads composed through `kernels.ops` at real sizes,
      with the six kernels' launch counts reset just before and read just
      after: (a) search-replace of 2^27 16-bit records (bit_transpose ->
@@ -67,7 +72,10 @@ lines; any failure exits nonzero, and nothing is caught:
      against the bit-plane kernel;
  13. the six kernels' times at the phase-12 sizes (CUDA graph and events)
      beside their bounds, their plain versions' and the one PyTorch call
-     that computes the same function where there is one;
+     that computes the same function where there is one; for the
+     bit-serial matmul also its launch geometry (CTAs, cluster size), the
+     rate its binary MMAs reach and the time of one trivial kernel timed
+     the same way (the floor of a call);
 
 then one JSON line of kernel records, the card's name and power limit as
 nvidia-smi prints them, and the result line
@@ -75,6 +83,7 @@ nvidia-smi prints them, and the result line
 """
 import copy
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -468,7 +477,7 @@ def phase_step_kernel(cs, comefa_sim, comefa_exec, dev):
     checks = launched = 0
     worst = 0
     t0 = time.perf_counter()
-    for nb in (1, 2, 16):
+    for nb in (1, 2, 6, 7, 16, 17):
         for chain in (False, True):
             s = GRID_SLOTS
             mem, carry, mask = _random_grid_state(rng, s, nb, isa)
@@ -496,10 +505,10 @@ def phase_step_kernel(cs, comefa_sim, comefa_exec, dev):
                 if not _grids_equal(grids):
                     fail(f"step kernel, plain scan and reference engine "
                          f"disagree: nb={nb} chain={chain} {what}")
-    print(f"[7 step] random programs: {checks} cases (nb 1/2/16, chain "
-          f"both ways, shared / per-slot / run_programs with and without "
-          f"latch resets), kernel = plain scan = reference engine bit for "
-          f"bit; {launched} kernel launches; "
+    print(f"[7 step] random programs: {checks} cases (nb 1/2/6/7/16/17, "
+          f"chain both ways, shared / per-slot / run_programs with and "
+          f"without latch resets), kernel = plain scan = reference engine "
+          f"bit for bit; {launched} kernel launches; "
           f"{time.perf_counter() - t0:.1f} s")
     for k, n in SMOLLM_SHAPES:
         plan, mat = _chunk_program(comefa_sim, comefa_exec, k, n)
@@ -672,6 +681,7 @@ def phase_step_timing(cs, comefa_sim, comefa_exec, dev, smi):
                                           isa)
     state = [engine_packed.pack_bits(v).to(dev) for v in (mem, carry, mask)]
     prog = torch.tensor(mat, device=dev)
+    dprog = cs.decode(prog)            # once, as the grid's cache does
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
 
@@ -686,7 +696,7 @@ def phase_step_timing(cs, comefa_sim, comefa_exec, dev, smi):
         return start.elapsed_time(end) / reps
 
     before = cs.launches
-    t_kernel = timed(lambda: cs.run_packed(*state, prog, chain=False,
+    t_kernel = timed(lambda: cs.run_packed(*state, dprog, chain=False,
                                            per_slot=False), 200)
     timing_launches = cs.launches - before
     t_plain = timed(lambda: cs.run_packed_plain(*state, prog, chain=False,
@@ -741,10 +751,11 @@ BITSERIAL_KERNELS = {
                        "src/repro/kernels/bulk_bitwise.py:38"),
     "raid_xor": ("bulk_bitwise.cu", "src/repro/kernels/bulk_bitwise.py:69"),
 }
-# 32-bit popcounts an SM issues a clock, cc 9.0 (CUDA C++ programming
-# guide, arithmetic instruction throughput table): not a bound of the
-# function, but the issue limit of the kernel's AND + POPC design
-POPC_PER_SM_CLOCK = 16
+# the bit-serial matmul's binary-MMA sweep (phase 11): every tiling edge
+MMA_SWEEP_M = (1, 4, 5, 16, 17, 64)
+MMA_SWEEP_K = (32, 96, 256, 960, 2560)
+MMA_SWEEP_N = (1, 8, 100, 320, 2560)
+MMA_SWEEP_BITS = (1, 3, 8)
 SEARCH_RECORDS, SEARCH_BITS = 1 << 27, 16   # width of benchmarks/tpu_kernels.py:64
 RAID_STRIPES, RAID_WORDS = 8, 1 << 24       # 7 data stripes + parity, 64 MiB each
 REDUCE_VALUES, REDUCE_BITS = 1 << 28, 8
@@ -899,6 +910,33 @@ def phase_bitserial_vs_plain(ks, ops, ref, bitplane, dev):
           f"five bit pairs: kernel = plain bit for bit, integer operands "
           f"exact, scaled results within {worst:.3f} of the f32 bound "
           f"against ref.bitserial_matmul_ref; "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cases = 0
+    for a, wb, m, k, n in itertools.product(MMA_SWEEP_BITS, MMA_SWEEP_BITS,
+                                            MMA_SWEEP_M, MMA_SWEEP_K,
+                                            MMA_SWEEP_N):
+        qx = _signed_values(gen, dev, a, m * k).view(m, k)
+        qw = _signed_values(gen, dev, wb, k * n).view(k, n)
+        xp = bitplane.pack(qx, a, axis=1).movedim(0, 1).contiguous()
+        wp = bitplane.pack(qw, wb, axis=0)
+        what = f"M={m} K={k} N={n} {a}x{wb} bits"
+        y = ks.bsm.bitserial_matmul(xp, wp, torch.ones((m, 1), device=dev),
+                                    torch.ones((1, n), device=dev),
+                                    a_bits=a, w_bits=wb)
+        if not torch.equal(y, (qx.double() @ qw.double()).float()):
+            fail(f"bitserial_matmul {what}: not the exact integer product")
+        sx = torch.rand((m, 1), generator=gen, device=dev) * 0.09 + 0.01
+        sw = torch.rand((1, n), generator=gen, device=dev) * 0.09 + 0.01
+        ks.same("bitserial_matmul", f"{what} scaled",
+                ks.bsm.bitserial_matmul(xp, wp, sx, sw, a_bits=a, w_bits=wb),
+                ks.bsm.bitserial_matmul_plain(xp, wp, sx, sw, a_bits=a,
+                                              w_bits=wb))
+        cases += 1
+    print(f"[11 bitserial] bitserial_matmul over its binary-MMA tiling: "
+          f"M in {MMA_SWEEP_M}, K in {MMA_SWEEP_K}, N in {MMA_SWEEP_N}, "
+          f"a and w in {MMA_SWEEP_BITS}: {cases} cases exact on integers "
+          f"and = plain bit for bit when scaled; "
           f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -1106,7 +1144,6 @@ def phase_bitserial_timing(ks, ops, bitplane, data, dev, smi):
 
     # #3: one layer's seven projections, each shape timed once, L2-cold
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock = _max_sm_clock_hz()
     a = SERIAL_BITS
     seen, totals = set(), [0.0] * 5
     for k, n, qx, sx, qw, sw, xp, wp, _, _ in data["projections"]:
@@ -1124,23 +1161,31 @@ def phase_bitserial_timing(ks, ops, bitplane, data, dev, smi):
             xp, wp, sx, sw, a_bits=a, w_bits=a), 5)
         t_lib = _time_ms(lambda i: torch.matmul(xd, wdc[i % len(wdc)]),
                          len(wdc))
+        # the floor of this timing: one trivial kernel a graph node
+        out = torch.empty((M_DECODE, n), device=wp.device)
+        t_floor = _time_ms(lambda i: out.zero_(), len(wc))
         # the function is M*K*N products of a-bit by a-bit integers: two
         # operations each at the int8 tensor-core rate
         t_ops = 1e3 * 2 * M_DECODE * k * n / INT8_OPS_PER_S
         nbytes = a / 8 * k * n + 4 * xp.numel() + 4 * M_DECODE * n + \
             4 * (M_DECODE + n)
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        popc = M_DECODE * (k // 32) * n * a * a
-        t_popc = 1e3 * popc / (POPC_PER_SM_CLOCK * sms * clock)
+        # the kernel's work: m16n8k256 binary MMAs over its padded tiles,
+        # each 16 * 8 * 256 AND + popcount-accumulate bit operations
+        geo = ks.bsm.geometry(M_DECODE, k, n, a, a, sms)
+        mmas = geo["m_tiles"] * ks.bsm.ROW_TILES * geo["n_tiles"] * \
+            ks.bsm.COL_TILES * geo["steps"]
+        bit_ops = mmas * 16 * 8 * 256
         print(f"[13 time] bitserial_matmul M={M_DECODE} K={k} N={n} "
               f"{a}x{a} bits: kernel {t_kernel * 1e3:.2f} us, bound "
               f"{max(t_ops, t_bytes) * 1e3:.2f} us (bytes {t_bytes * 1e3:.2f} "
               f"us; int8 products {t_ops * 1e3:.3f} us), plain "
               f"{t_plain * 1e3:.1f} us, torch.matmul on the dequantised f32 "
-              f"operands {t_lib * 1e3:.2f} us; design note: this kernel's "
-              f"{popc} popcounts take {t_popc * 1e3:.2f} us at "
-              f"{POPC_PER_SM_CLOCK} an SM a clock on {sms} SMs at "
-              f"{clock / 1e9:.3f} GHz; {smi}")
+              f"operands {t_lib * 1e3:.2f} us, one trivial kernel (zero_ of "
+              f"y) {t_floor * 1e3:.2f} us; launch: {geo['ctas']} CTAs in "
+              f"clusters of {geo['splits']} on {sms} SMs, {mmas} binary "
+              f"MMAs = {bit_ops / t_kernel / 1e9:.2f} T bit-ops/s "
+              f"achieved; {smi}")
         for i, v in enumerate((t_kernel, t_plain, t_lib, t_bytes, t_ops)):
             totals[i] += per_layer * v
         del wc, wdc

@@ -68,6 +68,7 @@ _F = {name: i for i, name in enumerate(isa.ENGINE_FIELD_NAMES)}
 
 # telemetry handles (repro_torch.obs default registry).  Label schemas:
 #   comefa.encode_cache{event=hits|misses|device_hits|device_misses}
+#     (device_*: kernels/comefa_step.decoded's cache of decoded programs)
 #   comefa.host_syncs / comefa.device_puts {kind=array|grid}
 #   comefa.dispatches / comefa.dispatch_cycles {kind=..., engine=...}
 #   comefa.engine_select{engine=...}
@@ -451,41 +452,6 @@ def encoded(program) -> np.ndarray:
         return _encode_cached(program.key, program.encode)
     instrs = tuple(program)
     return _encode_cached(instrs, lambda: encode_program(instrs))
-
-
-# device-side companion to the encode cache: cache the device copy of each
-# frozen matrix so repeated runs of the same program skip the transfer
-_DEVICE_MAT_CACHE: dict = {}
-_DEVICE_MAT_CACHE_MAX = 512
-
-
-def device_mat(mat: np.ndarray, device) -> torch.Tensor:
-    """Device-side int32 copy of an encoded program matrix, cached when
-    safe.
-
-    Only *frozen* matrices cache - exactly the encode-cache residents
-    (`_encode_cached` calls ``setflags(write=False)``) and anything else
-    a caller deliberately froze.  A writable matrix may be mutated or
-    garbage-collected after this call, so it uploads fresh each time
-    (temporary `_concat_encoded` / `run_per_slot` stacks take this path).
-    Entries key on ``(id(mat), device)`` and hold a strong reference to
-    the host matrix, so an id can never be recycled out from under its
-    entry; FIFO eviction bounds both caches the same way.
-    """
-    device = torch.device(device)
-    if mat.flags.writeable:
-        return torch.tensor(mat, dtype=torch.int32, device=device)
-    key = (id(mat), str(device))
-    entry = _DEVICE_MAT_CACHE.get(key)
-    if entry is not None:
-        _ENCODE_EVENTS.inc(event="device_hits")
-        return entry[1]
-    _ENCODE_EVENTS.inc(event="device_misses")
-    dev = torch.tensor(mat, dtype=torch.int32, device=device)
-    if len(_DEVICE_MAT_CACHE) >= _DEVICE_MAT_CACHE_MAX:
-        _DEVICE_MAT_CACHE.pop(next(iter(_DEVICE_MAT_CACHE)))
-    _DEVICE_MAT_CACHE[key] = (mat, dev)
-    return dev
 
 
 class ComefaArray:

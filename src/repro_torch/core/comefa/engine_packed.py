@@ -309,8 +309,9 @@ def _prepare_rows(rows: Sequence[Sequence[int]]) -> List[dict]:
     return [prepare_fields(lambda name, f=f: f[_F[name]]) for f in rows]
 
 
-# prepared field bundles of frozen (encode-cache) matrices, keyed like
-# `block.device_mat`: a hot chunk program is prepared once, not per run
+# prepared field bundles of frozen (encode-cache) matrices, keyed by the
+# matrix's id and holding it: a hot chunk program is prepared once, not
+# per run
 _PREPARED: dict = {}
 _PREPARED_MAX = 512
 
@@ -413,7 +414,8 @@ class CudaEngine(PackedEngine):
 
     Same packed layout as `PackedEngine` (so ``to_device``/``to_host`` and
     the row staging are inherited); each dispatch is ONE kernel launch
-    (`repro_torch.kernels.comefa_step.run_packed`).  The state must live
+    (`repro_torch.kernels.comefa_step.run_packed`) on the program decoded
+    by `comefa_step.decoded` (once for a frozen matrix).  The state must live
     on a CUDA device: anything else raises, nothing falls back.
     """
 
@@ -425,8 +427,8 @@ class CudaEngine(PackedEngine):
         return comefa_step
 
     def _prog(self, mat: np.ndarray, device) -> torch.Tensor:
-        from . import block
-        return block.device_mat(mat, device)
+        # the kernel's decoded program: cached for a frozen matrix
+        return self._kernel().decoded(mat, device)
 
     def run(self, state, mat: np.ndarray, chain: bool):
         mem, carry, mask = state

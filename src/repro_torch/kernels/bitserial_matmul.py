@@ -6,9 +6,11 @@
 with c_b = 2^b and -2^(bits-1) for the MSB plane.  This is the port of the
 Pallas kernel `repro.kernels.bitserial_matmul`, CoMeFa's
 two-operands-in-RAM multiply (paper Sec. III-E).  The CUDA kernel is
-`csrc/bitserial_matmul.cu`; its header says what bounds the function on
-the card (its bytes), what limits this AND + popcount design (its
-popcounts) and how the design answers that.
+`csrc/bitserial_matmul.cu`: binary tensor-core MMAs (``mma.sync``
+m16n8k256 ``.b1`` with ``.and.popc``) on the planes stacked into the
+MMA's rows and columns, K split across a thread block cluster, one launch
+a call with no scratch.  Its header says what bounds the function on the
+card (its bytes) and how the design answers that.
 
 The double sum is an exact integer in both the kernel and the plain
 version; it is rounded to f32 once and scaled as the JAX kernel scales it,
@@ -38,6 +40,12 @@ from . import nvcc
 
 SOURCE = Path(__file__).with_name("csrc") / "bitserial_matmul.cu"
 MAX_BITS = 8
+# the kernel's tiling (csrc/bitserial_matmul.cu): a CTA owns ROW_TILES m16
+# and COL_TILES n8 MMA tiles; a k256 step is STEP_WORDS words of K; K is
+# split over a cluster of at most MAX_CLUSTER CTAs, aiming at
+# CTAS_PER_SM CTAs on each SM
+ROW_TILES, COL_TILES, STEP_WORDS = 2, 8, 8
+MAX_CLUSTER, CTAS_PER_SM = 8, 4
 
 launches = 0          # kernel launches since the last reset (set it to 0)
 _lib = None
@@ -53,9 +61,38 @@ def _launcher():
     global _lib
     if _lib is None:
         _lib = nvcc.load(SOURCE, {"bitserial_matmul_launch":
-                                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                                   + [ctypes.c_void_p]})
     return _lib.bitserial_matmul_launch
+
+
+def geometry(m: int, k: int, n: int, a_bits: int, w_bits: int,
+             sms: int) -> dict:
+    """The kernel's launch on a card of `sms` SMs: column and row tiles
+    (each n8 tile holds 8 // w_bits whole output columns, each m16 tile
+    16 // a_bits whole rows), the k256 steps of K, and ``splits``, the
+    cluster's CTAs that share K with ``per`` steps each, so that about
+    CTAS_PER_SM CTAs land on each SM and none is left without a step."""
+    m_tiles = -(-m // (ROW_TILES * (16 // a_bits)))
+    n_tiles = -(-n // (COL_TILES * (8 // w_bits)))
+    steps = -(-k // (32 * STEP_WORDS))
+    want = -(-CTAS_PER_SM * sms // (m_tiles * n_tiles))
+    splits = max(1, min(want, MAX_CLUSTER, steps))
+    per = -(-steps // splits)
+    splits = -(-steps // per)
+    return {"m_tiles": m_tiles, "n_tiles": n_tiles, "steps": steps,
+            "splits": splits, "per": per,
+            "ctas": m_tiles * n_tiles * splits}
+
+
+_SMS: dict = {}
+
+
+def _sms(device: torch.device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
 
 
 def _check(x_packed: torch.Tensor, w_packed: torch.Tensor,
@@ -128,12 +165,11 @@ def bitserial_matmul(x_packed: torch.Tensor, w_packed: torch.Tensor,
         return torch.zeros((m, n), dtype=torch.float32,
                            device=x_packed.device)
     y = torch.empty((m, n), dtype=torch.float32, device=x_packed.device)
-    # the kernel's scratch when it splits K across CTAs
-    partial = torch.empty((m, n), dtype=torch.int32, device=x_packed.device)
+    geo = geometry(m, k32 * LANES, n, a_bits, w_bits, _sms(x_packed.device))
     stream = torch.cuda.current_stream(x_packed.device).cuda_stream
     err = _launcher()(x_packed.data_ptr(), w_packed.data_ptr(),
                       x_scale.data_ptr(), w_scale.data_ptr(), y.data_ptr(),
-                      partial.data_ptr(), m, k32 * LANES, n, a_bits, w_bits,
+                      m, k32 * LANES, n, a_bits, w_bits, geo["splits"],
                       stream)
     if err:
         raise RuntimeError(f"bitserial_matmul kernel launch failed: "

@@ -7,13 +7,23 @@ one call.  The CUDA kernel is `csrc/comefa_step.cu`; its header says what
 bounds it on the card (the dependent chain of T instructions, not bytes)
 and how its design answers that.
 
-`run_packed` is the wrapper, behind the grid's ``"cuda"`` engine.  A
-tensor on the CPU takes the plain PyTorch version (`run_packed_plain`,
-the word-parallel torch scan of the ``"packed"`` engine); a CUDA tensor
-launches the kernel or raises.  Both update ``mem``, ``carry`` and
-``mask`` in place and return them.  The module-level `launches` counts
-kernel launches, so a run can show that its path went through the
-kernel.
+The kernel reads a *decoded* program: `decode` turns the ``[..., T, 16]``
+engine field matrix into ``[..., T, 24]`` int32 words with the folding of
+`engine_packed.prepare_fields` (row offsets packed into two words, every
+select an all-ones/all-zeros mask), on the matrix's device.  `decoded`
+does it for the grid's ``"cuda"`` engine: a frozen (encode-cache) matrix
+is decoded once and cached by its id and device; a writable one (a
+per-slot stack) is decoded afresh on every call.
+
+`run_packed` is the wrapper, behind the grid's ``"cuda"`` engine.  It
+takes the field matrix or its decoded form (told apart by the last axis,
+16 or 24).  A tensor on the CPU takes a plain PyTorch version: the
+word-parallel torch scan of the ``"packed"`` engine (`run_packed_plain`)
+for fields, `run_decoded_plain` (the kernel's arithmetic on the decoded
+words) for a decoded program; a CUDA tensor launches the kernel or
+raises.  All update ``mem``, ``carry`` and ``mask`` in place and return
+them.  The module-level `launches` counts kernel launches, so a run can
+show that its path went through the kernel.
 
 The kernel is compiled by `nvcc` for ``sm_90a`` at first use, from the
 source in this package (`nvcc.build`), and called through its plain C
@@ -24,14 +34,25 @@ from __future__ import annotations
 import ctypes
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from ..core.comefa import isa
-from ..core.comefa.engine_packed import (N_WORDS, _run_packed,
-                                         _run_slotwise_packed)
+from ..core.comefa import block, isa
+from ..core.comefa.engine_packed import (_F, N_WORDS, _run_packed,
+                                         _run_slotwise_packed, _shifted,
+                                         prepare_fields)
 from . import nvcc
 
 SOURCE = Path(__file__).with_name("csrc") / "comefa_step.cu"
+# the decoded program's words after `srcs`, `dsts` and `same`, in the
+# kernel's order (csrc/comefa_step.cu); each is a prepare_fields mask
+MASKS = ("tt0", "tt1", "tt2", "tt3", "keep_b", "ext_and", "crst_keep", "ce",
+         "me", "p1a", "p1m", "p1c", "p1n", "p2a", "p2m", "p2c", "p2n", "v1s",
+         "v1r", "v2c", "v2l")
+DECODED_WORDS = 3 + len(MASKS)          # 24: six 16-byte loads a step
+TILE = 64                               # instructions a staged tile (kTile)
+_ROW_MASK = isa.N_ROWS - 1
+ROW_BYTES = 128                         # a row of a warp's state: 32 words
 
 launches = 0          # kernel launches since the last reset (set it to 0)
 _lib = None
@@ -52,6 +73,64 @@ def _launcher():
     return _lib.comefa_step_launch
 
 
+def decode(prog: torch.Tensor) -> torch.Tensor:
+    """Engine field matrix ``[..., T, 16]`` -> decoded ``[..., T, 24]``
+    int32, on the matrix's device (torch ops, no host round trip).
+
+    Words 0 and 1 hold the rows as byte offsets into a lane's column of
+    the kernel's state (``row * ROW_BYTES``): ``src1 | src2 << 16`` with
+    bit 0 set when a write takes a shifted value (the kernel then moves
+    seams), and ``dst | dst2 << 16``.  Word 2 is all-ones when ``dst2 ==
+    dst``; words 3-23 are the masks of `prepare_fields` named in `MASKS`.
+    """
+    f = prog.to(torch.int32)
+    x = prepare_fields(lambda name: f[..., _F[name]])
+
+    def off(name):
+        return (x[name] & _ROW_MASK) * ROW_BYTES
+
+    writes1 = x["p1a"] | x["p1m"] | x["p1c"] | x["p1n"]
+    writes2 = x["p2a"] | x["p2m"] | x["p2c"] | x["p2n"]
+    shift = ((x["v1r"] & writes1) | (x["v2l"] & writes2)) & 1
+    srcs = off("src1") | (off("src2") << 16) | shift
+    dsts = off("dst") | (off("dst2") << 16)
+    same = -(off("dst") == off("dst2")).to(torch.int32)
+    words = [srcs, dsts, same] + [x[k] for k in MASKS]
+    return torch.stack([w.to(torch.int32) for w in words], dim=-1) \
+        .contiguous()
+
+
+# decoded device programs of frozen (encode-cache) matrices: a hot chunk
+# program is decoded once, not per run
+_DECODED: dict = {}
+_DECODED_MAX = 512
+
+
+def decoded(mat: np.ndarray, device) -> torch.Tensor:
+    """The decoded program of an encoded matrix, on `device`.
+
+    A frozen matrix decodes once: the entry keys on ``(id(mat), device)``
+    and holds the matrix, so its id cannot be recycled under it; FIFO
+    eviction bounds the cache, and its hits and misses count as the
+    encode cache's ``device_hits`` / ``device_misses``.  A writable matrix
+    (a per-slot stack) may change after this call, so it is uploaded and
+    decoded on the device every time.
+    """
+    device = torch.device(device)
+    if mat.flags.writeable:
+        return decode(torch.tensor(mat, dtype=torch.int32, device=device))
+    key = (id(mat), str(device))
+    entry = _DECODED.get(key)
+    block._ENCODE_EVENTS.inc(event="device_misses" if entry is None
+                             else "device_hits")
+    if entry is None:
+        if len(_DECODED) >= _DECODED_MAX:
+            _DECODED.pop(next(iter(_DECODED)))
+        entry = _DECODED[key] = (mat, decode(torch.tensor(
+            mat, dtype=torch.int32, device=device)))
+    return entry[1]
+
+
 def _check(mem: torch.Tensor, carry: torch.Tensor, mask: torch.Tensor,
            prog: torch.Tensor, per_slot: bool) -> None:
     if mem.dim() != 4 or mem.shape[2:] != (isa.N_ROWS, N_WORDS):
@@ -64,10 +143,12 @@ def _check(mem: torch.Tensor, carry: torch.Tensor, mask: torch.Tensor,
                              f"{tuple(t.shape)}")
     lead = (s,) if per_slot else ()
     if prog.dim() != len(lead) + 2 or tuple(prog.shape[:-2]) != lead or \
-            prog.shape[-1] != isa.N_ENGINE_FIELDS:
+            prog.shape[-1] not in (isa.N_ENGINE_FIELDS, DECODED_WORDS):
         want = "[S, T, F]" if per_slot else "[T, F]"
         raise ValueError(f"prog must be {want} with F = "
-                         f"{isa.N_ENGINE_FIELDS}, got {tuple(prog.shape)}")
+                         f"{isa.N_ENGINE_FIELDS} (fields) or "
+                         f"{DECODED_WORDS} (decoded), got "
+                         f"{tuple(prog.shape)}")
     for name, t in (("mem", mem), ("carry", carry), ("mask", mask),
                     ("prog", prog)):
         if t.dtype != torch.int32:
@@ -79,13 +160,94 @@ def _check(mem: torch.Tensor, carry: torch.Tensor, mask: torch.Tensor,
                              f"{mem.device}, {name} {t.device}")
 
 
+def _is_decoded(prog: torch.Tensor) -> bool:
+    return prog.shape[-1] == DECODED_WORDS
+
+
 def run_packed_plain(mem: torch.Tensor, carry: torch.Tensor,
                      mask: torch.Tensor, prog: torch.Tensor, *,
                      chain: bool, per_slot: bool):
-    """The kernel's function in plain PyTorch: the packed engine's scan."""
+    """The kernel's function in plain PyTorch: the packed engine's scan
+    on the field matrix ``[..., T, 16]``."""
     _check(mem, carry, mask, prog, per_slot)
+    if _is_decoded(prog):
+        raise ValueError("run_packed_plain takes the field matrix; "
+                         "run_decoded_plain takes a decoded program")
     run = _run_slotwise_packed if per_slot else _run_packed
     return run(mem, carry, mask, prog, chain)
+
+
+def _rows(w):
+    """(src1, src2, dst, dst2) of a decoded instruction's words."""
+    return tuple(((v >> k) & 0xFFFF) // ROW_BYTES for v in w[:2]
+                 for k in (0, 16))
+
+
+def _scan_decoded(mem, carry, mask, words, chain: bool) -> None:
+    """The kernel's arithmetic on packed state ``[..., nb, 128, 5]``, in
+    place: decoded instructions (24 Python ints each) in tiles of `TILE`;
+    inside a tile the next instruction's four rows are read before this
+    one writes, and the rows it writes are forwarded into them."""
+    state = list(mem.unbind(dim=-2))
+    c, m = carry, mask
+    for t0 in range(0, len(words), TILE):
+        tile = words[t0:t0 + TILE]
+        ahead = [state[r] for r in _rows(tile[0])]
+        for i, w in enumerate(tile):
+            nrows = _rows(tile[min(i + 1, len(tile) - 1)])
+            read = [state[r] for r in nrows]
+            a, b_read, old1, old2 = ahead
+            shift, same = w[0] & 1, w[2]
+            x = dict(zip(MASKS, w[3:]))
+            _, _, dst, dst2 = _rows(w)
+            b = (b_read & x["keep_b"]) | x["ext_and"]
+            tr = (a & ((b & x["tt3"]) | (~b & x["tt2"]))) | \
+                (~a & ((b & x["tt1"]) | (~b & x["tt0"])))
+            c_in = c & x["crst_keep"]
+            s = tr ^ c_in
+            cgen = (a & b) | (c_in & (a ^ b))
+            we1 = x["p1a"] | (m & x["p1m"]) | (c & x["p1c"]) | \
+                (~c & x["p1n"])
+            we2 = x["p2a"] | (m & x["p2m"]) | (c & x["p2c"]) | \
+                (~c & x["p2n"])
+            from_right = from_left = 0
+            if shift:
+                from_right, from_left = _shifted(s, chain)
+            val1 = (s & x["v1s"]) | (from_right & x["v1r"])
+            val2 = (c & x["v2c"]) | (from_left & x["v2l"])
+            new1 = (old1 & ~we1) | (val1 & we1)
+            state[dst] = new1
+            base2 = (new1 & same) | (old2 & ~same)
+            new2 = (base2 & ~we2) | (val2 & we2)
+            state[dst2] = new2
+            c = (cgen & x["ce"]) | (c & ~x["ce"])
+            m = (tr & x["me"]) | (m & ~x["me"])
+            # port 2 wrote last: dst2 wins over dst
+            ahead = [new2 if r == dst2 else new1 if r == dst else v
+                     for r, v in zip(nrows, read)]
+    out = torch.stack(state, dim=-2)
+    carry.copy_(c)
+    mask.copy_(m)
+    mem.copy_(out)
+
+
+def run_decoded_plain(mem: torch.Tensor, carry: torch.Tensor,
+                      mask: torch.Tensor, prog: torch.Tensor, *,
+                      chain: bool, per_slot: bool):
+    """What the kernel computes from a decoded program ``[..., T, 24]``
+    (`decode`), in plain PyTorch: no field is read, only the decoded
+    words, in the kernel's order - rows read one instruction ahead inside
+    a tile and forwarded from the instruction that writes them."""
+    _check(mem, carry, mask, prog, per_slot)
+    if not _is_decoded(prog):
+        raise ValueError(f"run_decoded_plain takes a decoded program "
+                         f"[..., T, {DECODED_WORDS}]")
+    if per_slot:
+        for g in range(mem.shape[0]):
+            _scan_decoded(mem[g], carry[g], mask[g], prog[g].tolist(), chain)
+    else:
+        _scan_decoded(mem, carry, mask, prog.tolist(), chain)
+    return mem, carry, mask
 
 
 def run_packed(mem: torch.Tensor, carry: torch.Tensor, mask: torch.Tensor,
@@ -101,14 +263,16 @@ def run_packed(mem: torch.Tensor, carry: torch.Tensor, mask: torch.Tensor,
     global launches
     _check(mem, carry, mask, prog, per_slot)
     if mem.device.type == "cpu":
-        return run_packed_plain(mem, carry, mask, prog, chain=chain,
-                                per_slot=per_slot)
+        plain = run_decoded_plain if _is_decoded(prog) else run_packed_plain
+        return plain(mem, carry, mask, prog, chain=chain, per_slot=per_slot)
     if mem.device.type != "cuda":
         raise ValueError(f"no CoMeFa step kernel for device {mem.device}")
     s, nb = mem.shape[:2]
     t = prog.shape[-2]
     if t == 0:
         return mem, carry, mask
+    if not _is_decoded(prog):
+        prog = decode(prog)
     if prog.data_ptr() % 16:
         raise ValueError("prog must be 16-byte aligned")
     launch = _launcher()

@@ -333,6 +333,154 @@ def test_quantized_matmul_matches_jax(bits):
 
 
 # ---------------------------------------------------------------------------
+# the CUDA kernel's decomposition (csrc/bitserial_matmul.cu), emulated in
+# numpy: planes stacked into the binary MMA's rows (m, j) and columns
+# (n, i), k256 steps with a zero-filled tail, K split over a cluster, the
+# uint32 coefficient epilogue, then (float(acc) * sx) * sw
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+_POPC8 = np.array([bin(v).count("1") for v in range(256)], np.int64)
+
+
+def _popc32(v: np.ndarray) -> np.ndarray:
+    b = np.ascontiguousarray(v, np.uint32).view(np.uint8)
+    return _POPC8[b].reshape(*v.shape, 4).sum(-1)
+
+
+def _coefs(bits: int) -> np.ndarray:
+    """Plane weights modulo 2^32 (uint64 wraps mod 2^64, a multiple)."""
+    c = [1 << b for b in range(bits)]
+    c[-1] = (1 << 32) - c[-1]
+    return np.array(c, np.uint64)
+
+
+def _emulate_mma_kernel(xp, wp, sx, sw, a, w, sms=H100_SMS):
+    """The kernel's arithmetic CTA by CTA, from its launch geometry."""
+    xw = np.asarray(xp).view(np.uint32)                 # [M, a, W]
+    ww = np.asarray(wp).view(np.uint32)                 # [w, W, N]
+    m, _, words = xw.shape
+    n = ww.shape[2]
+    geo = bsm.geometry(m, 32 * words, n, a, w, sms)
+    mt, nt = 16 // a, 8 // w
+    rows_cta, cols_cta = 16 * bsm.ROW_TILES, 8 * bsm.COL_TILES
+    mrows, ncols = bsm.ROW_TILES * mt, bsm.COL_TILES * nt
+    kpad = geo["steps"] * bsm.STEP_WORDS
+    ca, cw = _coefs(a), _coefs(w)
+    y = np.zeros((m, n), np.float32)
+    for ty in range(geo["m_tiles"]):
+        # stacked rows: an m16 tile holds mt whole rows of a planes each
+        A = np.zeros((rows_cta, kpad), np.uint32)
+        ra = np.zeros((mrows, rows_cta), np.uint64)     # epilogue weights
+        for r in range(rows_cta):
+            ml, j = divmod(r % 16, a)
+            if ml < mt:
+                ra[(r // 16) * mt + ml, r] = ca[j]
+                mm = ty * mrows + (r // 16) * mt + ml
+                if mm < m:
+                    A[r, :words] = xw[mm, j]
+        for tx in range(geo["n_tiles"]):
+            B = np.zeros((kpad, cols_cta), np.uint32)
+            cb = np.zeros((cols_cta, ncols), np.uint64)
+            for c in range(cols_cta):
+                q, i = divmod(c % 8, w)
+                if q < nt:
+                    cb[c, (c // 8) * nt + q] = cw[i]
+                    nn = tx * ncols + (c // 8) * nt + q
+                    if nn < n:
+                        B[:words, c] = ww[i, :, nn]
+            acc = np.zeros((mrows, ncols), np.uint64)
+            for rank in range(geo["splits"]):       # the cluster's CTAs
+                cm = np.zeros((rows_cta, cols_cta), np.uint64)
+                for st in range(rank * geo["per"],
+                                min(geo["steps"], (rank + 1) * geo["per"])):
+                    ks = slice(8 * st, 8 * st + 8)     # one k256 MMA step
+                    cm += _popc32(A[:, None, ks] & B[ks].T[None]).sum(-1) \
+                        .astype(np.uint64)
+                acc += ra @ cm @ cb                  # wraps mod 2^64
+            acc = (acc & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+            rows = ty * mrows + np.arange(mrows)
+            cols = tx * ncols + np.arange(ncols)
+            keep_r, keep_c = rows < m, cols < n
+            vals = acc[np.ix_(keep_r, keep_c)].astype(np.float32)
+            vals = vals * np.asarray(sx)[rows[keep_r]]
+            vals = vals * np.asarray(sw)[:, cols[keep_c]]
+            y[np.ix_(rows[keep_r], cols[keep_c])] = vals
+    return y
+
+
+def _serial_operands(seed, m, k, n, a, w, scaled=True):
+    rng = np.random.default_rng(seed)
+    qx, qw = _signed(rng, a, (m, k)), _signed(rng, w, (k, n))
+    xp = _pack_rows(qx, a)
+    wp = bp.pack(torch.as_tensor(qw), w, axis=0)
+    if scaled:
+        sx = rng.uniform(0.01, 0.1, (m, 1)).astype(np.float32)
+        sw = rng.uniform(0.01, 0.1, (1, n)).astype(np.float32)
+    else:
+        sx, sw = np.ones((m, 1), np.float32), np.ones((1, n), np.float32)
+    return xp, wp, torch.as_tensor(sx), torch.as_tensor(sw), qx, qw
+
+
+@pytest.mark.parametrize("a,w", [(a, w) for a in (1, 3, 8)
+                                 for w in (1, 3, 8)])
+@pytest.mark.parametrize("k", [96, 960, 2560])
+@pytest.mark.parametrize("m,n", [(5, 70), (17, 100), (4, 320)])
+def test_mma_decomposition_equals_plain(m, k, n, a, w):
+    """K = 96, 960, 2560 leave 3, 6 and 0 words after the k256 steps;
+    M*a and N*w are ragged against the 16 x 8 tiles at 3 bits and at
+    M = 5, 17, N = 70, 100."""
+    xp, wp, sx, sw, qx, qw = _serial_operands(m * k + n + 10 * a + w, m, k,
+                                              n, a, w)
+    y = _emulate_mma_kernel(xp, wp, sx, sw, a, w)
+    plain = bsm.bitserial_matmul_plain(xp, wp, sx, sw, a_bits=a, w_bits=w)
+    np.testing.assert_array_equal(y, plain.numpy())
+    exact = (qx.astype(np.int64) @ qw).astype(np.float32)
+    ones = _emulate_mma_kernel(xp, wp, torch.ones_like(sx),
+                               torch.ones_like(sw), a, w)
+    np.testing.assert_array_equal(ones, exact)
+
+
+@pytest.mark.parametrize("m,k,a,w", [(5, 96, 8, 8), (17, 96, 3, 1),
+                                     (5, 2560, 3, 3), (17, 2560, 1, 3)])
+def test_mma_decomposition_equals_jax_kernel(m, k, a, w):
+    """At shapes the Pallas kernel takes (N = 128, K < 512 or K % 512 ==
+    0), in interpret mode; every partial sum stays below 2^24, so JAX's
+    f32 sum is exact too and the three agree bit for bit."""
+    n = 128
+    assert k << (a + w - 2) < 1 << 24
+    xp, wp, sx, sw, _, _ = _serial_operands(m + k + a * w, m, k, n, a, w)
+    y = _emulate_mma_kernel(xp, wp, sx, sw, a, w)
+    y_jax = np.asarray(jax_ops.bitserial_matmul(
+        jnp.asarray(_u32(xp)), jnp.asarray(_u32(wp)), jnp.asarray(sx.numpy()),
+        jnp.asarray(sw.numpy()), a_bits=a, w_bits=w))
+    np.testing.assert_array_equal(y, y_jax)
+
+
+@given(m=st.integers(1, 20), kw=st.integers(1, 40), n=st.integers(1, 40),
+       a=st.integers(1, 8), w=st.integers(1, 8), seed=st.integers(0, 999))
+@settings(max_examples=25, deadline=None)
+def test_mma_decomposition_property(m, kw, n, a, w, seed):
+    xp, wp, sx, sw, _, _ = _serial_operands(seed, m, 32 * kw, n, a, w)
+    np.testing.assert_array_equal(
+        _emulate_mma_kernel(xp, wp, sx, sw, a, w),
+        bsm.bitserial_matmul_plain(xp, wp, sx, sw, a_bits=a,
+                                   w_bits=w).numpy())
+
+
+@pytest.mark.parametrize("k,n", SMOLLM_SHAPES)
+def test_mma_geometry_fills_the_card_at_decode(k, n):
+    """M = 4, 8x8 bits on 132 SMs: at least one CTA an SM, clusters of at
+    most 8, no cluster CTA without a k256 step, and none of the 32 stacked
+    rows is padding."""
+    geo = bsm.geometry(4, k, n, 8, 8, H100_SMS)
+    assert geo["ctas"] >= H100_SMS and 1 <= geo["splits"] <= 8
+    assert (geo["splits"] - 1) * geo["per"] < geo["steps"] <= \
+        geo["splits"] * geo["per"]
+    assert geo["m_tiles"] == 1 and 4 * 8 == 16 * bsm.ROW_TILES
+
+
+# ---------------------------------------------------------------------------
 # the paper's workloads, composed through ops at small size
 # ---------------------------------------------------------------------------
 

@@ -1,9 +1,11 @@
 """The port on a CUDA GPU: the bit-plane kernel against its plain version,
 a reduced model on the card against the CPU, the CoMeFa step kernel
-against its plain version and the uint8 reference engine, and the
-bit-serial and bulk-bitwise kernels (bit transpose and untranspose,
-search-replace, RAID XOR, bit-serial reduce and matmul) against their
-plain versions, bit for bit.
+against its plain version and the uint8 reference engine (its warp
+segments at nb 1-17, its decoded-program cache), and the bit-serial and
+bulk-bitwise kernels (bit transpose and untranspose, search-replace, RAID
+XOR, bit-serial reduce and matmul) against their plain versions, bit for
+bit, with the bit-serial matmul's binary-MMA tiling swept over ragged
+shapes and held to one launch and no scratch a call.
 
 Every test here needs the card: it carries the `cuda` marker and skips
 where `torch.cuda.is_available()` is False.  The file imports no JAX, so
@@ -212,6 +214,55 @@ def test_step_kernel_on_main_path_chunk_programs(cuda, k, n):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("nb", [1, 2, 6, 7, 16, 17])
+@pytest.mark.parametrize("chain", [False, True])
+@pytest.mark.parametrize("layout", ["shared", "per_slot", "reset",
+                                    "threaded"])
+def test_step_kernel_warp_segments(cuda, nb, chain, layout):
+    """Six blocks a warp: nb 1, 6 and 16 end a warp exactly or early, 7 and
+    17 spill one block into a further warp (a second CTA unchained, a
+    cross-warp seam chained); rows drawn from eight so that nearly every
+    instruction reads a row its predecessor wrote; 150 instructions cross
+    two program tiles."""
+    rng = np.random.default_rng(1000 + 10 * nb + 2 * chain + len(layout))
+    grids = _grids(rng, 3, nb, chain, cuda)
+
+    def prog(t):
+        f = _random_fields(rng, t)
+        for c in (0, 1, 2, 14):                 # src1 src2 dst dst2
+            f[:, c] = rng.integers(0, 8, t)
+        return f
+
+    before = cs.launches
+    if layout == "shared":
+        p = prog(150)
+        for g in grids:
+            g.run(p)
+    elif layout == "per_slot":
+        ps = [prog(int(rng.integers(20, 150))) for _ in range(3)]
+        for g in grids:
+            g.run_per_slot(ps)
+    else:
+        ps = [prog(40) for _ in range(3)]
+        counts = {tuple(g.run_programs(ps, reset_latches=layout == "reset"))
+                  for g in grids}
+        assert len(counts) == 1
+    assert cs.launches > before
+    _assert_grids_equal(grids)
+
+
+def test_cuda_engine_decodes_a_frozen_program_once(cuda):
+    rng = np.random.default_rng(31)
+    mat = _random_fields(rng, 40)
+    mat.setflags(write=False)
+    g = ComefaGrid(2, n_blocks=3, engine="cuda", device=cuda)
+    g.run(mat)
+    first = cs.decoded(mat, cuda)
+    g.run(mat)
+    assert cs.decoded(mat, cuda) is first and first.device.type == "cuda"
+    assert torch.equal(first.cpu(), cs.decode(torch.tensor(mat)))
+
+
 def test_grid_executor_on_card_matches_reference(cuda):
     """A full-width projection (960 -> 320) on the grid, cuda engine."""
     rng = np.random.default_rng(0)
@@ -321,6 +372,60 @@ def test_bitserial_matmul_kernel_matches_plain(cuda, m, k, n, a_bits,
     assert torch.equal(y, bsm.bitserial_matmul_plain(
         xp, wp, sx, sw, a_bits=a_bits, w_bits=w_bits))
     assert bsm.launches == before + 2
+
+
+@pytest.mark.parametrize("a_bits,w_bits", [(a, w) for a in (1, 3, 8)
+                                           for w in (1, 3, 8)])
+@pytest.mark.parametrize("m", [1, 4, 5, 16, 17, 64])
+def test_bitserial_matmul_mma_shapes(cuda, m, a_bits, w_bits):
+    """The binary-MMA kernel at K in 32..2560 (one word, tails of 3 and 6
+    words, whole k256 steps) and N in 1..2560, M*a and N*w ragged against
+    its 16 x 8 tiles: exact on integers, equal to the plain version when
+    scaled."""
+    rng = np.random.default_rng(100 * m + 10 * a_bits + w_bits)
+    for k in (32, 96, 256, 960, 2560):
+        for n in (1, 8, 100, 320, 2560):
+            qx = _signed(rng, a_bits, m * k, cuda).view(m, k)
+            qw = _signed(rng, w_bits, k * n, cuda).view(k, n)
+            xp = bp.pack(qx, a_bits, axis=1).movedim(0, 1).contiguous()
+            wp = bp.pack(qw, w_bits, axis=0)
+            y = bsm.bitserial_matmul(xp, wp, torch.ones((m, 1), device=cuda),
+                                     torch.ones((1, n), device=cuda),
+                                     a_bits=a_bits, w_bits=w_bits)
+            exact = (qx.double() @ qw.double()).to(torch.float32)
+            assert torch.equal(y, exact), (m, k, n)
+            sx = torch.rand((m, 1), device=cuda) * 0.09 + 0.01
+            sw = torch.rand((1, n), device=cuda) * 0.09 + 0.01
+            y = bsm.bitserial_matmul(xp, wp, sx, sw, a_bits=a_bits,
+                                     w_bits=w_bits)
+            assert torch.equal(y, bsm.bitserial_matmul_plain(
+                xp, wp, sx, sw, a_bits=a_bits, w_bits=w_bits)), (m, k, n)
+
+
+def test_bitserial_matmul_one_launch_no_scratch(cuda):
+    """One kernel on the device a call - no memset, no second pass - and
+    one allocation, the output."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(7)
+    m, k, n = 4, 960, 320
+    xp = bp.pack(_signed(rng, 8, m * k, cuda).view(m, k), 8,
+                 axis=1).movedim(0, 1).contiguous()
+    wp = bp.pack(_signed(rng, 8, k * n, cuda).view(k, n), 8, axis=0)
+    sx, sw = torch.ones((m, 1), device=cuda), torch.ones((1, n), device=cuda)
+    bsm.bitserial_matmul(xp, wp, sx, sw, a_bits=8, w_bits=8)    # warm up
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    before = bsm.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bsm.bitserial_matmul(xp, wp, sx, sw, a_bits=8, w_bits=8)
+        torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == \
+        allocs + 1
+    assert bsm.launches == before + 1
+    on_dev = [e for e in prof.events()
+              if str(e.device_type).endswith("CUDA")]
+    assert len(on_dev) == 1, [e.name for e in on_dev]
+    assert "bitserial_matmul_kernel" in on_dev[0].name
 
 
 def test_bitserial_equals_bitplane_on_integers_on_card(cuda):
