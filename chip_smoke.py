@@ -10,9 +10,11 @@ lines; any failure exits nonzero, and nothing is caught:
      (six sources, one nvcc each, in parallel) for sm_90a and print the
      build time and each kernel's registers, shared memory and spills;
   2. the kernel against its plain PyTorch version on the card, at the four
-     SmolLM-360M projection shapes (M=4) and a ragged one, bits 4 and 8:
-     exact on integer x with scale 1, else within the f32 bound for two
-     orders of one sum, |d| <= (K+2) * 2^-23 * (|x| @ |w|);
+     SmolLM-360M projection shapes and a ragged one, M = 4 (CUDA-core
+     path) and 32 (tensor-core path), f32 and bf16 x, bits 4 and 8: exact
+     on integer x with scale 1, else within the f32 bound for two orders
+     of one sum, |d| <= (K+2) * 2^-23 * (|x| @ |w|); and a bf16 y equal,
+     bit for bit, to the f32 y rounded to nearest even;
   3. a reduced SmolLM (f32, 2 layers, 8-bit planes) on the card against
      the port's plain path on the CPU with the same params: equal greedy
      tokens, logits within 1e-4;
@@ -21,10 +23,15 @@ lines; any failure exits nonzero, and nothing is caught:
      `serve.engine.generate` (batch 4 x 8-token prompts) and then
      `serve_continuous` (8 requests over 4 slots), with the kernel's
      launch count reset just before and read just after; plus one decode
-     step with the kernel against the plain version on the card, and a
-     torch.profiler pass over a short generate (device busy share);
+     step with the kernel against the plain version on the card; that
+     every projection of a decode step hands the kernel x in the model's
+     dtype and takes y in it (no cast around the kernel), with the step's
+     casts counted; and a torch.profiler pass over a short generate
+     (device busy share, cast launches);
   5. the kernel's time beside its byte bound, its plain version's and
-     `torch.matmul`'s on the dequantised f32 weight, at the four shapes;
+     `torch.matmul`'s on the dequantised f32 weight, at the four shapes,
+     M = 4 and 32, f32 and bf16 x and y, and one trivial kernel timed
+     alike;
   6. the CoMeFa step kernel (`csrc/comefa_step.cu`), built in the same
      parallel nvcc run as the bit-plane kernel: build time, registers,
      shared memory and spills;
@@ -33,7 +40,13 @@ lines; any failure exits nonzero, and nothing is caught:
      shared and per-slot, chain both ways, run_programs with latch resets
      both ways, nb in {1, 2, 6, 7, 16, 17} (warps of six blocks ending
      exactly, early and one block over), plus real chunk programs at the
-     main path's shapes; mem, carry and mask must be bit-identical;
+     main path's shapes; mem, carry and mask must be bit-identical; then
+     chained slots past one CTA (nb 78, 79, 160, 624: one CTA, then
+     clusters of 2, 4 and 8 through distributed shared memory) against the
+     packed scan and the reference engine, the card's
+     cudaOccupancyMaxActiveClusters for the 8-CTA cluster, nb = 625
+     refused with a ValueError before any launch, and 65,536 unchained
+     slots against the packed scan;
   8. the grid path: full-width SmolLM-360M (d_model 960, d_ff 2560, 15/5
      heads, vocab 49152, bf16, 8-bit planes, random seeded params) at
      full depth (32 layers), served by `serve_continuous` with 4 staggered
@@ -99,9 +112,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 INT8_OPS_PER_S = 1.979e15      # H100 SXM int8 tensor cores, dense
 BITS = 8
 M_DECODE = 4
+M_PREFILL = 32      # phase 4's prefill: batch 4 x 8-token prompts
 # SmolLM-360M's packed projections (K, N) and how many of each a layer runs
 SMOLLM_SHAPES = {(960, 960): 2,      # wq, wo
                  (960, 320): 2,      # wk, wv
@@ -165,32 +180,46 @@ def _operands(gen, dev, bits, m, k, n, integer):
 def phase_kernel_vs_plain(bpm, bitplane, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = 0.0
-    shapes = [(M_DECODE, k, n) for k, n in SMOLLM_SHAPES] + [RAGGED]
+    shapes = [(m, k, n) for m in (M_DECODE, M_PREFILL)
+              for k, n in SMOLLM_SHAPES] + [RAGGED, (M_PREFILL,) + RAGGED[1:]]
     for m, k, n in shapes:
         for bits in (4, BITS):
-            xi, q, ones = _operands(gen, dev, bits, m, k, n, integer=True)
-            planes = bitplane.pack(q, bits)
-            yk = bpm.bitplane_matmul(xi, planes, ones, bits=bits)
-            yp = bpm.bitplane_matmul_plain(xi, planes, ones, bits=bits)
-            torch.cuda.synchronize()
-            exact = torch.equal(yk, yp)
+            xi, qi, ones = _operands(gen, dev, bits, m, k, n, integer=True)
+            pi = bitplane.pack(qi, bits)
             x, q, scale = _operands(gen, dev, bits, m, k, n, integer=False)
             planes = bitplane.pack(q, bits)
-            yk = bpm.bitplane_matmul(x, planes, scale, bits=bits)
-            yp = bpm.bitplane_matmul_plain(x, planes, scale, bits=bits)
-            torch.cuda.synchronize()
-            bound = (k + 2) * 2.0 ** -23 * (
-                x.abs().double() @ (q.abs().double() * scale.double()))
-            err = (yk - yp).abs().double()
-            within = bool((err <= bound).all())
-            worst = max(worst, float(err.max()))
-            print(f"[2 kernel] M={m} K={k} N={n} bits={bits}: integer "
-                  f"exact={exact}; float max|d|={float(err.max()):.3e}, "
-                  f"max |d|/bound={float((err / bound).max()):.3f}")
-            if not (exact and within):
+            exact, rounded, ratio = True, True, 0.0
+            for xd in (torch.float32, torch.bfloat16):
+                yk = bpm.bitplane_matmul(xi.to(xd), pi, ones, bits=bits)
+                yp = bpm.bitplane_matmul_plain(xi.to(xd), pi, ones, bits=bits)
+                torch.cuda.synchronize()
+                exact = exact and torch.equal(yk, yp)
+                xx = x.to(xd)
+                yk = bpm.bitplane_matmul(xx, planes, scale, bits=bits)
+                yp = bpm.bitplane_matmul_plain(xx, planes, scale, bits=bits)
+                # a bf16 y (the main path's) is the f32 y rounded once
+                yb = bpm.bitplane_matmul(xx, planes, scale, bits=bits,
+                                         out_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                rounded = rounded and torch.equal(yb, yk.to(torch.bfloat16))
+                bound = (k + 2) * 2.0 ** -23 * (
+                    xx.abs().double() @ (q.abs().double() * scale.double()))
+                err = (yk - yp).abs().double()
+                ratio = max(ratio, float((err / bound).max()))
+                worst = max(worst, float(err.max()))
+            path = bpm.geometry(m, k, n, _sms())["path"]
+            print(f"[2 kernel] M={m} K={k} N={n} bits={bits} ({path} path), "
+                  f"x f32 and bf16: integer exact={exact}; float max "
+                  f"|d|/bound={ratio:.3f}; bf16 y = f32 y rounded to "
+                  f"nearest even: {rounded}")
+            if not (exact and rounded and ratio <= 1):
                 fail(f"kernel disagrees with plain at M={m} K={k} N={n} "
                      f"bits={bits}")
     return worst
+
+
+def _sms():
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def phase_reduced(bpm, configs, common, lm, engine, dev):
@@ -313,10 +342,47 @@ def phase_full(bpm, configs, common, lm, engine, dev):
           f"(tolerance 5e-2), argmax agreement {agree:.2f}")
     if d > 5e-2 * scale:
         fail("full-model decode step: kernel and plain disagree")
+    calls, casts = _projection_dtypes(
+        bpm, lambda: lm.decode_step(model, nxt, saved, s))
+    seen = sorted({(str(a), str(b)) for a, b in calls})
+    print(f"[4 casts] one decode step: {len(calls)} bit-plane kernel calls, "
+          f"(x, y) dtypes {seen}: no cast before or after any packed "
+          f"projection; {casts} aten._to_copy casts in the whole step")
+    if len(calls) != 7 * cfg.n_layers or \
+            any(a != cfg.adtype or b != cfg.adtype for a, b in calls):
+        fail("a packed projection casts around the bit-plane kernel")
     step_s = gen_s / (s + steps)
     profile_decode(lambda: engine.generate(model, prompt, steps=4,
                                            max_len=s + 5), s + 4, step_s)
     return launched, step_s
+
+
+def _projection_dtypes(bpm, run):
+    """Run `run()` with every bit-plane kernel call's x and y dtypes
+    recorded and every aten._to_copy (a cast) counted by a
+    TorchDispatchMode: returns the calls' (x dtype, y dtype) pairs and the
+    number of casts."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    calls, casts = [], [0]
+    real = bpm.bitplane_matmul
+
+    class Casts(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket is torch.ops.aten._to_copy:
+                casts[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    def logged(x, planes, scale, *, bits, out_dtype=torch.float32, **kw):
+        calls.append((x.dtype, out_dtype))
+        return real(x, planes, scale, bits=bits, out_dtype=out_dtype, **kw)
+
+    bpm.bitplane_matmul = logged
+    try:
+        with Casts():
+            run()
+    finally:
+        bpm.bitplane_matmul = real
+    return calls, casts[0]
 
 
 def profile_decode(run, calls, step_s):
@@ -338,6 +404,11 @@ def profile_decode(run, calls, step_s):
     print(f"[4 profile] device busy {dev_us / 1e3:.3f} ms per decode call "
           f"of {1e3 * step_s:.2f} ms wall unprofiled "
           f"({100 * dev_us / (1e6 * step_s):.1f}% busy)")
+    cast = [e for e in on_dev if "copy_kernel" in e.key]
+    print(f"[4 profile] casts on the device: "
+          f"{sum(e.count for e in cast) / calls:.1f} launches and "
+          f"{sum(e.self_device_time_total for e in cast) / calls:.1f} us per "
+          f"decode call")
     for e in sorted(on_dev, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"[4 profile]   device {e.self_device_time_total / calls:8.1f}"
               f" us/call  {e.count // calls:4d}x  {e.key[:70]}")
@@ -380,42 +451,103 @@ def _copies(nbytes, target=256e6):
 
 
 def phase_timings(bpm, bitplane, dev, smi):
+    """Each SmolLM-360M shape at M = 4: the kernel on bf16 x and y (the
+    main path's call, the record's numbers) and on f32 x and y; its bound,
+    plain version and torch.matmul on the dequantised weight (bf16 and
+    f32); then M = 32 (prefill); and one trivial kernel timed alike (the
+    floor of a call).  The bound is the larger of the bytes and the
+    products at the bf16 tensor-core rate: one bf16 product a weight and
+    row for a bf16 x, three (hi, mid, lo) for an f32 x."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    m, rows = M_DECODE, {}
+    bf = torch.bfloat16
+    rows = {}
     for (k, n), per_layer in SMOLLM_SHAPES.items():
-        x, q, scale = _operands(gen, dev, BITS, m, k, n, integer=False)
-        planes = bitplane.pack(q, BITS)
-        w = bitplane.dequantize(q, scale)                       # f32 [K, N]
-        pc = [planes.clone() for _ in range(_copies(planes.numel() * 4))]
-        wc = [w.clone() for _ in range(_copies(w.numel() * 4))]
-        t_kernel = _time_ms(lambda i: bpm.bitplane_matmul(
-            x, pc[i % len(pc)], scale, bits=BITS), len(pc))
-        t_plain = _time_ms(lambda i: bpm.bitplane_matmul_plain(
-            x, pc[i % len(pc)], scale, bits=BITS), 10)
-        t_lib = _time_ms(lambda i: torch.matmul(x, wc[i % len(wc)]), len(wc))
-        nbytes = BITS / 8 * k * n + 4 * m * k + 4 * m * n + 4 * n
-        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        t_ops = 1e3 * 2 * m * k * n / F32_FLOP_PER_S
-        rows[(k, n)] = (t_kernel, t_plain, t_lib, t_bytes, t_ops)
-        bound = max(t_bytes, t_ops)
-        print(f"[5 time] M={m} K={k} N={n} bits={BITS}: kernel "
-              f"{t_kernel * 1e3:.2f} us, bound {bound * 1e3:.2f} us ("
-              f"{'bytes' if t_bytes >= t_ops else 'operations'}; "
-              f"{nbytes / t_kernel / 1e6:.0f} GB/s achieved), plain "
-              f"{t_plain * 1e3:.2f} us, torch.matmul on the dequantised "
-              f"f32 weight {t_lib * 1e3:.2f} us; {smi}")
-        del pc, wc
-    kernel, plain, lib, t_bytes, t_ops = (
-        sum(rows[s][i] * c for s, c in SMOLLM_SHAPES.items())
-        for i in range(5))
-    layer = {"ms": kernel, "plain_ms": plain, "library_ms": lib,
-             "bound_ms": max(t_bytes, t_ops),
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    print(f"[5 time] one layer's 7 projections (M={m}): kernel "
-          f"{kernel * 1e3:.2f} us, bound {layer['bound_ms'] * 1e3:.2f} us "
-          f"({layer['bound_by']}), plain {plain * 1e3:.2f} us, "
-          f"torch.matmul {lib * 1e3:.2f} us; {smi}")
-    return layer
+        row = {}
+        for m in (M_DECODE, M_PREFILL):
+            x, q, scale = _operands(gen, dev, BITS, m, k, n, integer=False)
+            xb = x.to(bf)
+            planes = bitplane.pack(q, BITS)
+            w = bitplane.dequantize(q, scale)                   # f32 [K, N]
+            wb = w.to(bf)
+            pc = [planes.clone() for _ in range(_copies(planes.numel() * 4))]
+            wc = [w.clone() for _ in range(_copies(w.numel() * 4))]
+            wbc = [wb.clone() for _ in range(_copies(wb.numel() * 2))]
+
+            def kernel(xx, od=torch.float32):
+                return _time_ms(lambda i: bpm.bitplane_matmul(
+                    xx, pc[i % len(pc)], scale, bits=BITS, out_dtype=od),
+                    len(pc))
+
+            t = {"f32": kernel(x), "bf16": kernel(xb, bf),
+                 "lib": _time_ms(lambda i: torch.matmul(x, wc[i % len(wc)]),
+                                 len(wc)),
+                 "lib_bf16": _time_ms(
+                     lambda i: torch.matmul(xb, wbc[i % len(wbc)]),
+                     len(wbc))}
+            nbytes = BITS / 8 * k * n + 4 * m * k + 4 * m * n + 4 * n
+            t["bytes"] = 1e3 * nbytes / HBM_BYTES_PER_S
+            t["bytes_bf16"] = 1e3 * (nbytes - 2 * m * (k + n)) / \
+                HBM_BYTES_PER_S
+            t["ops_bf16"] = 1e3 * 2 * m * k * n / BF16_FLOP_PER_S
+            t["ops"] = 3 * t["ops_bf16"]
+            if m == M_DECODE:
+                t["plain"] = _time_ms(lambda i: bpm.bitplane_matmul_plain(
+                    x, pc[i % len(pc)], scale, bits=BITS), 10)
+                t["plain_bf16"] = _time_ms(
+                    lambda i: bpm.bitplane_matmul_plain(
+                        xb, pc[i % len(pc)], scale, bits=BITS, out_dtype=bf),
+                    10)
+                out = torch.empty((m, n), device=dev)
+                t["floor"] = _time_ms(lambda i: out.zero_(), len(pc))
+            geo = bpm.geometry(m, k, n, _sms())
+
+            def bound(suffix=""):
+                b, o = t["bytes" + suffix], t["ops" + suffix]
+                return (f"{max(b, o) * 1e3:.2f} us ("
+                        f"{'bytes' if b >= o else 'operations'})")
+
+            print(f"[5 time] M={m} K={k} N={n} bits={BITS} ({geo['path']} "
+                  f"path, {geo['splits']} splits, {geo['ctas']} CTAs): "
+                  f"kernel bf16 x and y {t['bf16'] * 1e3:.2f} us, bound "
+                  f"{bound('_bf16')}, torch.matmul in bf16 "
+                  f"{t['lib_bf16'] * 1e3:.2f} us; kernel f32 x and y "
+                  f"{t['f32'] * 1e3:.2f} us, bound {bound()}, "
+                  f"{nbytes / t['f32'] / 1e6:.0f} GB/s achieved, "
+                  f"torch.matmul in f32 {t['lib'] * 1e3:.2f} us" + (
+                      f"; plain bf16 {t['plain_bf16'] * 1e3:.2f} us, f32 "
+                      f"{t['plain'] * 1e3:.2f} us; one trivial kernel "
+                      f"(zero_ of y) {t['floor'] * 1e3:.2f} us"
+                      if m == M_DECODE else "") + f"; {smi}")
+            row[m] = t
+            del pc, wc, wbc
+        rows[(k, n)] = row
+
+    def layer(m, key):
+        return sum(rows[s][m][key] * c for s, c in SMOLLM_SHAPES.items())
+
+    dec = {key: layer(M_DECODE, key)
+           for key in ("f32", "bf16", "lib", "lib_bf16", "plain",
+                       "plain_bf16", "bytes", "ops", "bytes_bf16",
+                       "ops_bf16")}
+    record = {"ms": dec["bf16"], "plain_ms": dec["plain_bf16"],
+              "library_ms": dec["lib_bf16"],
+              "bound_ms": max(dec["bytes_bf16"], dec["ops_bf16"]),
+              "bound_by": "bytes" if dec["bytes_bf16"] >= dec["ops_bf16"]
+              else "operations"}
+    print(f"[5 time] one layer's 7 projections (M={M_DECODE}, bf16 x and y "
+          f"as the main path calls them): kernel {dec['bf16'] * 1e3:.2f} "
+          f"us, bound {record['bound_ms'] * 1e3:.2f} us "
+          f"({record['bound_by']}), plain {dec['plain_bf16'] * 1e3:.2f} us, "
+          f"torch.matmul {dec['lib_bf16'] * 1e3:.2f} us; f32 x and y: kernel "
+          f"{dec['f32'] * 1e3:.2f} us, bound "
+          f"{max(dec['bytes'], dec['ops']) * 1e3:.2f} us, plain "
+          f"{dec['plain'] * 1e3:.2f} us, torch.matmul {dec['lib'] * 1e3:.2f} "
+          f"us; at M={M_PREFILL}: kernel bf16 "
+          f"{layer(M_PREFILL, 'bf16') * 1e3:.2f} us (torch.matmul "
+          f"{layer(M_PREFILL, 'lib_bf16') * 1e3:.2f} us), f32 "
+          f"{layer(M_PREFILL, 'f32') * 1e3:.2f} us (torch.matmul "
+          f"{layer(M_PREFILL, 'lib') * 1e3:.2f} us); {smi}")
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +664,82 @@ def phase_step_kernel(cs, comefa_sim, comefa_exec, dev):
             fail(f"step kernel disagrees with plain on the ({k}, {n}) "
                  f"chunk program")
     return worst
+
+
+def phase_chains(cs, dev):
+    """Chained slots past one CTA (nb 78 in one CTA; 79, 160 and 624 on
+    clusters of 2, 4 and 8) against the packed scan and the reference
+    engine; nb 625 refused before any launch; 65,536 unchained slots."""
+    from repro_torch.core.comefa import ComefaGrid, engine_packed, isa
+    ctas, warps, clusters = cs.max_active_clusters(cs.MAX_CHAIN_BLOCKS)
+    print(f"[7 chain] cudaOccupancyMaxActiveClusters: {clusters} clusters "
+          f"of {ctas} CTAs x {warps} warps (a {cs.MAX_CHAIN_BLOCKS}-block "
+          f"chained slot) at once")
+    if clusters < 1:
+        fail("the card cannot hold one cluster of a 624-block chained slot")
+    rng = np.random.default_rng(17)
+    w1 = isa.ENGINE_FIELD_NAMES.index("w1_sel")
+    t0 = time.perf_counter()
+    for nb in (78, 79, 160, cs.MAX_CHAIN_BLOCKS):
+        def prog(t):
+            f = _random_fields(rng, t, isa)
+            f[:, w1] = 2 * rng.integers(0, 2, t)    # half the steps shift
+            return f
+        shared = prog(70)
+        per_slot = [prog(int(rng.integers(20, 70))) for _ in range(GRID_SLOTS)]
+        mem, carry, mask = _random_grid_state(rng, GRID_SLOTS, nb, isa)
+        for what in ("shared", "per_slot"):
+            grids = []
+            for eng in ("cuda", "packed", "reference"):
+                g = ComefaGrid(GRID_SLOTS, n_blocks=nb, chain=True,
+                               engine=eng, device=dev)
+                g.mem, g.carry, g.mask = mem.copy(), carry.copy(), mask.copy()
+                before = cs.launches
+                g.run(shared) if what == "shared" else g.run_per_slot(per_slot)
+                if eng == "cuda" and cs.launches != before + 1:
+                    fail(f"chained nb={nb} {what}: no step kernel launch")
+                grids.append(g)
+            if not _grids_equal(grids):
+                fail(f"chained nb={nb} {what}: step kernel, packed scan and "
+                     f"reference engine disagree")
+        print(f"[7 chain] nb={nb} chained ({cs.ctas_per_slot(nb, True)} CTAs "
+              f"a slot), {GRID_SLOTS} slots, shared and per-slot programs: "
+              f"kernel = packed scan = reference engine in mem, carry, mask "
+              f"and cycles")
+    mem = torch.zeros((1, cs.MAX_CHAIN_BLOCKS + 1, isa.N_ROWS,
+                       engine_packed.N_WORDS), dtype=torch.int32, device=dev)
+    latch = torch.zeros((1, cs.MAX_CHAIN_BLOCKS + 1, engine_packed.N_WORDS),
+                        dtype=torch.int32, device=dev)
+    before = cs.launches
+    try:
+        cs.run_packed(mem, latch, latch.clone(),
+                      torch.tensor(_random_fields(rng, 4, isa), device=dev),
+                      chain=True, per_slot=False)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail("a 625-block chained slot was not refused")
+    if cs.launches != before:
+        fail("the refused launch reached the kernel")
+    print(f"[7 chain] nb=625 chained: ValueError before any launch: "
+          f"{refused}")
+    slots = 65536
+    gen = torch.Generator(device=dev).manual_seed(18)
+    state = [torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                           device=dev, dtype=torch.int32)
+             for shape in ((slots, 1, isa.N_ROWS, engine_packed.N_WORDS),
+                           (slots, 1, engine_packed.N_WORDS),
+                           (slots, 1, engine_packed.N_WORDS))]
+    p = torch.tensor(_random_fields(rng, 12, isa), device=dev)
+    got = cs.run_packed(*[v.clone() for v in state], p, chain=False,
+                        per_slot=False)
+    want = cs.run_packed_plain(*[v.clone() for v in state], p, chain=False,
+                               per_slot=False)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail("65,536 slots: step kernel and packed scan disagree")
+    print(f"[7 chain] {slots} unchained slots of one block, T=12: kernel = "
+          f"packed scan; {time.perf_counter() - t0:.1f} s")
 
 
 class _Probe:
@@ -1236,10 +1444,12 @@ def main():
     launched, step_s = phase_full(bpm, configs, common, lm, engine, dev)
     layer = phase_timings(bpm, bitplane, dev, smi)
     per_step = 32 * layer["ms"]
-    print(f"[5 time] 32 layers x 7 kernel launches = {per_step:.3f} ms of a "
+    print(f"[5 time] 32 layers x 7 kernel launches (bf16 x and y, as the "
+          f"main path calls it) = {per_step:.3f} ms of a "
           f"{1e3 * step_s:.2f} ms decode step ({100 * per_step / (1e3 * step_s):.1f}"
           f"% of its wall time); {smi}")
     step_err = phase_step_kernel(cs, comefa_sim, comefa_exec, dev)
+    phase_chains(cs, dev)
     step_launched, per_layer_wave, tok_s = phase_grid_serve(
         cs, configs, lm, engine, comefa_exec, comefa_sim, metrics, dev,
         GRID_LAYERS)

@@ -25,6 +25,11 @@ raises.  All update ``mem``, ``carry`` and ``mask`` in place and return
 them.  The module-level `launches` counts kernel launches, so a run can
 show that its path went through the kernel.
 
+On the card a chained slot holds at most `MAX_CHAIN_BLOCKS` blocks (a
+cluster of eight CTAs, each holding 78 blocks in shared memory);
+`check_launch` refuses a longer chain before the launch, and a slot count
+beyond the C interface's int.  The CPU versions run any size.
+
 The kernel is compiled by `nvcc` for ``sm_90a`` at first use, from the
 source in this package (`nvcc.build`), and called through its plain C
 function with `ctypes`.
@@ -53,6 +58,9 @@ DECODED_WORDS = 3 + len(MASKS)          # 24: six 16-byte loads a step
 TILE = 64                               # instructions a staged tile (kTile)
 _ROW_MASK = isa.N_ROWS - 1
 ROW_BYTES = 128                         # a row of a warp's state: 32 words
+BLOCKS_PER_WARP, MAX_WARPS, MAX_CLUSTER = 6, 13, 8   # csrc/comefa_step.cu
+MAX_CHAIN_BLOCKS = BLOCKS_PER_WARP * MAX_WARPS * MAX_CLUSTER      # 624
+MAX_SLOTS = 2 ** 31 - 1                 # an int of the C interface
 
 launches = 0          # kernel launches since the last reset (set it to 0)
 _lib = None
@@ -64,13 +72,57 @@ def build() -> Path:
     return nvcc.build(SOURCE)[0]
 
 
-def _launcher():
+def _library():
     global _lib
     if _lib is None:
-        _lib = nvcc.load(SOURCE, {"comefa_step_launch":
-                                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                                  + [ctypes.c_void_p]})
-    return _lib.comefa_step_launch
+        _lib = nvcc.load(SOURCE, {
+            "comefa_step_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p],
+            "comefa_step_max_clusters": [ctypes.c_int] * 2
+            + [ctypes.c_void_p]})
+    return _lib
+
+
+def ctas_per_slot(nb: int, chain: bool) -> int:
+    """CTAs the kernel gives one slot of `nb` blocks: one a warp of six
+    blocks unchained; chained, one CTA up to 13 warps, else a cluster of
+    2, 4 or 8 CTAs."""
+    groups = -(-nb // BLOCKS_PER_WARP)
+    if not chain:
+        return groups
+    ctas = 1
+    while ctas * MAX_WARPS < groups:
+        ctas *= 2
+    return ctas
+
+
+def check_launch(slots: int, nb: int, chain: bool) -> None:
+    """Raise ValueError, naming the limit, for a launch the kernel cannot
+    run: a chained slot of more than `MAX_CHAIN_BLOCKS` blocks, or more
+    than `MAX_SLOTS` slots."""
+    if chain and nb > MAX_CHAIN_BLOCKS:
+        raise ValueError(f"a chained slot holds at most {MAX_CHAIN_BLOCKS} "
+                         f"blocks on the cuda engine (got nb={nb}); the "
+                         f"packed and reference engines run any nb")
+    if slots > MAX_SLOTS:
+        raise ValueError(f"a launch holds at most {MAX_SLOTS} slots on the "
+                         f"cuda engine (got {slots})")
+
+
+def max_active_clusters(nb: int) -> tuple:
+    """(CTAs a cluster, warps a CTA, clusters the card holds at once) for
+    a chained slot of `nb` blocks (more than 78, so a cluster), from
+    cudaOccupancyMaxActiveClusters."""
+    ctas = ctas_per_slot(nb, True)
+    groups = -(-nb // BLOCKS_PER_WARP)
+    warps = -(-groups // ctas)
+    out = ctypes.c_int(0)
+    err = _library().comefa_step_max_clusters(ctas, warps,
+                                              ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
+                           f"cudaError {err}")
+    return ctas, warps, out.value
 
 
 def decode(prog: torch.Tensor) -> torch.Tensor:
@@ -258,7 +310,8 @@ def run_packed(mem: torch.Tensor, carry: torch.Tensor, mask: torch.Tensor,
     int32 ``[T, F]`` (shared) or ``[S, T, F]`` (``per_slot=True``).
     Returns ``(mem, carry, mask)``.  CPU tensors take `run_packed_plain`;
     CUDA tensors launch the kernel on the current stream (no
-    synchronisation) and raise if the launch fails.
+    synchronisation) and raise if the launch fails, or before it, a
+    ValueError for a launch beyond the kernel's limits (`check_launch`).
     """
     global launches
     _check(mem, carry, mask, prog, per_slot)
@@ -268,6 +321,7 @@ def run_packed(mem: torch.Tensor, carry: torch.Tensor, mask: torch.Tensor,
     if mem.device.type != "cuda":
         raise ValueError(f"no CoMeFa step kernel for device {mem.device}")
     s, nb = mem.shape[:2]
+    check_launch(s, nb, chain)
     t = prog.shape[-2]
     if t == 0:
         return mem, carry, mask
@@ -275,7 +329,7 @@ def run_packed(mem: torch.Tensor, carry: torch.Tensor, mask: torch.Tensor,
         prog = decode(prog)
     if prog.data_ptr() % 16:
         raise ValueError("prog must be 16-byte aligned")
-    launch = _launcher()
+    launch = _library().comefa_step_launch
     stream = torch.cuda.current_stream(mem.device).cuda_stream
     err = launch(mem.data_ptr(), carry.data_ptr(), mask.data_ptr(),
                  prog.data_ptr(), s, nb, t, int(chain), int(per_slot),

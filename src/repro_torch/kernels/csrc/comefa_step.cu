@@ -50,9 +50,24 @@
 //    `chain` false a CTA is one warp of one slot, so the S * nb blocks
 //    spread over S * ceil(nb / 6) CTAs (12 at the main path's 4 slots x
 //    nb = 16) and the instruction loop takes no barrier at all.  With
-//    `chain` true a CTA holds a whole slot (ceil(nb / 6) warps); the seam
-//    between two warps goes through shared memory with one barrier on each
-//    shifting instruction (none when the slot fits one warp).
+//    `chain` true a CTA holds a whole slot of up to 78 blocks (ceil(nb / 6)
+//    warps, at most 13 for shared memory); the seam between two warps goes
+//    through shared memory with one barrier on each shifting instruction
+//    (none when the slot fits one warp).
+//  * Longer chains on a thread block cluster.  A chained slot of 79-624
+//    blocks spreads over a cluster of 2, 4 or 8 CTAs (8 is the portable
+//    size), each holding up to 13 warps of state in its own shared memory.
+//    The seam words between neighbouring CTAs pass through distributed
+//    shared memory, and the barrier of a shifting instruction becomes a
+//    cluster barrier (barrier.cluster.arrive.release / wait.acquire) at the
+//    same points and only there.
+//  * Any number of slots.  The CTAs of a slot sit on gridDim.x and the
+//    slots on (gridDim.y, gridDim.z), 65535 to a z-layer, so more than
+//    65535 slots run; the spare CTAs of the last layer return at once.
+//    (A one-dimensional grid that divided blockIdx.x by the CTAs a slot
+//    cost the unchained kernel 4% in one H100 call, PERF.md.)
+//    Above 624 blocks the state would have to leave shared memory (global
+//    memory, or a cooperative grid); run_packed refuses such a launch.
 //  * Rows read one instruction ahead.  While instruction t computes, the
 //    four rows of t + 1 are already loaded; where one of them is a row
 //    that t writes, the value t just computed is forwarded in a register
@@ -78,7 +93,10 @@
 
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -89,6 +107,8 @@ constexpr int kBlocksPerWarp = 6;
 constexpr int kLanesUsed = kBlocksPerWarp * kWords;   // 30
 constexpr int kTile = 64;             // instructions staged at once
 constexpr int kMaxWarps = 13;         // warps of a chained slot's CTA (smem)
+constexpr int kMaxCluster = 8;        // CTAs of a chained slot (portable)
+constexpr int kSlotsPerLayer = 65535;   // slots a z-layer of the grid
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr unsigned kInsnBytes = kVecs * sizeof(uint4);
 
@@ -163,13 +183,26 @@ struct Rows {
   uint32_t a, b, d1, d2;
 };
 
-template <bool kCross>
-__global__ void __launch_bounds__(kCross ? 32 * kMaxWarps : 32)
+// the barrier of a shifting instruction and at the end of a clustered run
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release;\n"
+               "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// kMode 0: one warp a CTA, no seam between warps; 1: a chained slot in one
+// CTA of several warps; 2: a chained slot over a cluster of `ctas` CTAs
+template <int kMode>
+__global__ void __launch_bounds__(kMode ? 32 * kMaxWarps : 32)
 comefa_step_kernel(uint32_t* __restrict__ mem,
                    uint32_t* __restrict__ carry_io,
                    uint32_t* __restrict__ mask_io,
                    const uint4* __restrict__ prog, int t_len, int nb,
-                   int chain, int per_slot) {
+                   int chain, int per_slot, int slots) {
+  constexpr bool kCross = kMode > 0;
+  // slots on (y, z), at most 65535 a z-layer; the CTAs of a slot on x
+  const int slot = blockIdx.z * kSlotsPerLayer + blockIdx.y;
+  if (slot >= slots) return;                 // the last layer's spare CTAs
+  const int rank = blockIdx.x, ctas = gridDim.x;
   // shared memory: two program tiles, each warp's state [kRows][32]
   // words, then the cross-warp seam exchange [2][kMaxWarps][2]
   extern __shared__ uint4 smem[];
@@ -178,8 +211,7 @@ comefa_step_kernel(uint32_t* __restrict__ mem,
   uint32_t* state = reinterpret_cast<uint32_t*>(smem + 2 * kTile * kVecs);
   uint32_t* xbuf = state + warps * kRows * 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int slot = blockIdx.y;
-  const int blk0 = (blockIdx.x * warps + warp) * kBlocksPerWarp;
+  const int blk0 = (rank * warps + warp) * kBlocksPerWarp;
   const int nblk = max(0, min(kBlocksPerWarp, nb - blk0));
   const int bl = lane / kWords, word = lane - bl * kWords;
   const int blk = blk0 + bl;
@@ -220,6 +252,19 @@ comefa_step_kernel(uint32_t* __restrict__ mem,
   // opaque to the compiler, so that it keeps them in registers instead of
   // recomputing them from the lane index inside the loop
   asm volatile("" : "+r"(hi_sh), "+r"(hi_x), "+r"(lo_sh), "+r"(lo_x));
+  // where the neighbouring warps' seam words land (phase 0): the next
+  // warp's low edge and the previous warp's high edge, in this CTA or,
+  // across a CTA edge of a cluster, in the neighbour CTA's shared memory
+  // (read only by the lanes whose hi_x / lo_x is set)
+  uint32_t* x_next = xbuf + min(warp + 1, warps - 1) * 2;
+  uint32_t* x_prev = xbuf + max(warp - 1, 0) * 2 + 1;
+  if constexpr (kMode == 2) {
+    cg::cluster_group cluster = cg::this_cluster();
+    if (warp + 1 == warps && rank + 1 < ctas)
+      x_next = cluster.map_shared_rank(xbuf, rank + 1);
+    if (warp == 0 && rank > 0)
+      x_prev = cluster.map_shared_rank(xbuf, rank - 1) + (warps - 1) * 2 + 1;
+  }
   // this lane's column: row r is at col_s + 128 r (32 words a row)
   const unsigned col_s =
       static_cast<unsigned>(__cvta_generic_to_shared(sw + lane));
@@ -252,13 +297,13 @@ comefa_step_kernel(uint32_t* __restrict__ mem,
       uint32_t hi = __shfl_down_sync(kFull, s, 1) & hi_sh;
       uint32_t lo = __shfl_up_sync(kFull, s, 1) & lo_sh;
       if constexpr (kCross) {
-        uint32_t* xb = xbuf + phase * kMaxWarps * 2;
+        const int off = phase * kMaxWarps * 2;
         phase ^= 1;
-        if (lane == 0) xb[warp * 2] = s;
-        if (lane == kLanesUsed - 1) xb[warp * 2 + 1] = s;
-        __syncthreads();
-        hi |= hi_x & xb[min(warp + 1, warps - 1) * 2];
-        lo |= lo_x & xb[max(warp - 1, 0) * 2 + 1];
+        if (lane == 0) xbuf[off + warp * 2] = s;
+        if (lane == kLanesUsed - 1) xbuf[off + warp * 2 + 1] = s;
+        if constexpr (kMode == 2) cluster_barrier(); else __syncthreads();
+        if (hi_x) hi |= x_next[off];
+        if (lo_x) lo |= x_prev[off];
       }
       from_right = __funnelshift_r(s, hi, 1);   // lane c + 1 -> c
       from_left = __funnelshift_l(lo, s, 1);    // lane c - 1 -> c
@@ -319,6 +364,8 @@ comefa_step_kernel(uint32_t* __restrict__ mem,
   }
 
   asm volatile("cp.async.wait_all;\n" ::);   // (a program of no tile)
+  // no CTA of a cluster leaves while a neighbour may still read its seams
+  if constexpr (kMode == 2) cluster_barrier();
   __syncwarp();
 #pragma unroll 4
   for (int i = lane; i < n_state; i += 32) {
@@ -333,23 +380,51 @@ comefa_step_kernel(uint32_t* __restrict__ mem,
   }
 }
 
-template <bool kCross>
-cudaError_t launch(dim3 grid, int warps, uint32_t* mem, uint32_t* carry,
-                   uint32_t* mask, const uint4* prog, int t_len, int nb,
-                   int chain, int per_slot, cudaStream_t stream) {
-  const size_t smem = 2 * kTile * kVecs * sizeof(uint4) +
-                      static_cast<size_t>(warps) * kRows * 32 *
-                          sizeof(uint32_t) +
-                      2 * kMaxWarps * 2 * sizeof(uint32_t);
+size_t smem_bytes(int warps) {
+  return 2 * kTile * kVecs * sizeof(uint4) +
+         static_cast<size_t>(warps) * kRows * 32 * sizeof(uint32_t) +
+         2 * kMaxWarps * 2 * sizeof(uint32_t);
+}
+
+// `ctas` CTAs of `warps` warps a slot on x, slots on (y, z); kMode 2 runs
+// each slot's CTAs as one cluster
+template <int kMode>
+cudaError_t launch(int slots, int ctas, int warps, uint32_t* mem,
+                   uint32_t* carry, uint32_t* mask, const uint4* prog,
+                   int t_len, int nb, int chain, int per_slot,
+                   cudaStream_t stream) {
+  const size_t smem = smem_bytes(warps);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        comefa_step_kernel<kCross>,
+        comefa_step_kernel<kMode>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  comefa_step_kernel<kCross><<<grid, warps * 32, smem, stream>>>(
-      mem, carry, mask, prog, t_len, nb, chain, per_slot);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(ctas, min(slots, kSlotsPerLayer),
+                        (slots + kSlotsPerLayer - 1) / kSlotsPerLayer);
+  config.blockDim = dim3(warps * 32, 1, 1);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kMode == 2 ? ctas : 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = kMode == 2 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, comefa_step_kernel<kMode>, mem, carry, mask, prog, t_len, nb,
+      chain, per_slot, slots);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// the cluster of a chained slot of `groups` warps: 2, 4 or 8 CTAs
+int cluster_ctas(int groups) {
+  int ctas = 2;
+  while (ctas * kMaxWarps < groups) ctas *= 2;
+  return ctas;
 }
 
 }  // namespace
@@ -357,16 +432,19 @@ cudaError_t launch(dim3 grid, int warps, uint32_t* mem, uint32_t* carry,
 // Runs `t_len` decoded instructions on `slots` slots of `nb` blocks each,
 // in place.  Returns the cudaError_t of the launch (0 on success); the
 // kernel runs on `stream` and nothing here synchronises.  A chained slot
-// holds at most kMaxWarps * 6 = 78 blocks (the shared memory of one CTA).
+// holds at most kMaxCluster * kMaxWarps * 6 = 624 blocks (eight CTAs'
+// shared memory).
 extern "C" int comefa_step_launch(void* mem, void* carry, void* mask,
                                   const void* prog, int slots, int nb,
                                   int t_len, int chain, int per_slot,
                                   void* stream) {
-  if (slots <= 0 || slots > 65535 || nb <= 0 || t_len < 0)
+  if (slots <= 0 || nb <= 0 || t_len < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int groups = (nb + kBlocksPerWarp - 1) / kBlocksPerWarp;
-  if (chain && groups > kMaxWarps)
+  if (chain && groups > kMaxCluster * kMaxWarps)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int ctas = !chain ? groups
+                   : groups <= kMaxWarps ? 1 : cluster_ctas(groups);
   auto* m = static_cast<uint32_t*>(mem);
   auto* c = static_cast<uint32_t*>(carry);
   auto* k = static_cast<uint32_t*>(mask);
@@ -374,14 +452,38 @@ extern "C" int comefa_step_launch(void* mem, void* carry, void* mask,
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (!chain) {         // one warp a CTA, no barrier in the loop
-    err = launch<false>(dim3(groups, slots), 1, m, c, k, p, t_len, nb, 0,
-                        per_slot, st);
+    err = launch<0>(slots, ctas, 1, m, c, k, p, t_len, nb, 0, per_slot, st);
   } else if (groups == 1) {
-    err = launch<false>(dim3(1, slots), 1, m, c, k, p, t_len, nb, 1,
-                        per_slot, st);
+    err = launch<0>(slots, 1, 1, m, c, k, p, t_len, nb, 1, per_slot, st);
+  } else if (ctas == 1) {
+    err = launch<1>(slots, 1, groups, m, c, k, p, t_len, nb, 1, per_slot,
+                    st);
   } else {
-    err = launch<true>(dim3(1, slots), groups, m, c, k, p, t_len, nb, 1,
-                       per_slot, st);
+    err = launch<2>(slots, ctas, (groups + ctas - 1) / ctas, m, c, k, p,
+                    t_len, nb, 1, per_slot, st);
   }
+  return static_cast<int>(err);
+}
+
+// How many clusters of `ctas` CTAs of `warps` warps (a chained slot's
+// launch) the card can hold at once, into *out; returns the cudaError_t.
+extern "C" int comefa_step_max_clusters(int ctas, int warps, int* out) {
+  const size_t smem = smem_bytes(warps);
+  cudaError_t err = cudaFuncSetAttribute(
+      comefa_step_kernel<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(ctas, 1, 1);
+  config.blockDim = dim3(warps * 32, 1, 1);
+  config.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(out, comefa_step_kernel<2>, &config);
   return static_cast<int>(err);
 }

@@ -32,13 +32,19 @@ def bitplane_matmul(x: torch.Tensor, w_packed: torch.Tensor,
                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """y[M, N] = x[M, K] @ dequant(w_packed, scale), as `out_dtype`.
 
-    x may be any float type and layout; the kernel sees a contiguous f32
-    copy.  Where it runs follows `x.device` (see `kernels.bitplane_matmul`).
+    An f32 or bf16 x goes to the kernel as it is, which widens it in
+    registers, and an f32 or bf16 `out_dtype` is the kernel's own rounding:
+    one launch, no cast around it.  Other float types are cast to f32
+    first and the f32 result to `out_dtype` after.  Where it runs follows
+    `x.device` (see `kernels.bitplane_matmul`).
     """
-    y = _bpm.bitplane_matmul(x.to(torch.float32).contiguous(),
-                             w_packed.contiguous(), scale.contiguous(),
-                             bits=bits)
-    return y.to(out_dtype)
+    if x.dtype not in _bpm.DTYPES:
+        x = x.to(torch.float32)
+    direct = out_dtype in _bpm.DTYPES
+    y = _bpm.bitplane_matmul(x.contiguous(), w_packed.contiguous(),
+                             scale.contiguous(), bits=bits,
+                             out_dtype=out_dtype if direct else torch.float32)
+    return y if direct else y.to(out_dtype)
 
 
 def bitserial_matmul(x_packed: torch.Tensor, w_packed: torch.Tensor,

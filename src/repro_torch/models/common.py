@@ -187,8 +187,9 @@ def set_linear_hook(hook):
 def linear(params: PackedLinear, x: torch.Tensor) -> torch.Tensor:
     """y = x @ W with optional bit-plane packed weights (CoMeFa path).
 
-    The packed branch casts x to f32, takes the kernel's f32 output and
-    casts back to the activation dtype, as the JAX kernel branch does.
+    The packed branch is one kernel launch: the kernel takes x in its own
+    dtype, widens it to f32, sums in f32 and rounds to x's dtype, which is
+    what the JAX kernel branch's casts around its f32 kernel give.
     """
     if params.w is not None:
         return x @ params.w.to(x.dtype)
@@ -200,8 +201,8 @@ def linear(params: PackedLinear, x: torch.Tensor) -> torch.Tensor:
         y = _LINEAR_HOOK({"packed": packed, "scale": scale}, x2, bits)
         if y is not None:
             return y.reshape(*lead, -1).to(x.dtype)
-    y = kops.bitplane_matmul(x2, packed, scale, bits=bits)
-    return y.reshape(*lead, -1).to(x.dtype)
+    y = kops.bitplane_matmul(x2, packed, scale, bits=bits, out_dtype=x.dtype)
+    return y.reshape(*lead, -1)
 
 
 class RMSNorm(nn.Module):

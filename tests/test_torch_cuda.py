@@ -1,7 +1,9 @@
-"""The port on a CUDA GPU: the bit-plane kernel against its plain version,
-a reduced model on the card against the CPU, the CoMeFa step kernel
-against its plain version and the uint8 reference engine (its warp
-segments at nb 1-17, its decoded-program cache), and the bit-serial and
+"""The port on a CUDA GPU: the bit-plane kernel against its plain version
+(both paths, both dtypes, the split-K cluster), a reduced model on the
+card against the CPU, the CoMeFa step kernel against its plain version
+and the uint8 reference engine (its warp segments at nb 1-17, chained
+slots on clusters up to 624 blocks, 65,536 slots, its decoded-program
+cache), and the bit-serial and
 bulk-bitwise kernels (bit transpose and untranspose, search-replace, RAID
 XOR, bit-serial reduce and matmul) against their plain versions, bit for
 bit, with the bit-serial matmul's binary-MMA tiling swept over ragged
@@ -88,6 +90,74 @@ def test_kernel_exact_on_integers(cuda, bits):
     y = bpm.bitplane_matmul(x, planes, ones, bits=bits)
     np.testing.assert_array_equal(y.cpu().numpy(),
                                   x.cpu().numpy() @ q.astype(np.float32))
+
+
+SMOLLM_SHAPES = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
+
+
+def _bf16_ulp(y):
+    """One bf16 ulp of each |y| (f32 tensor): the gap of the final
+    rounding when two f32 sums within the f32 bound straddle a tie."""
+    e = torch.floor(torch.log2(y.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+@pytest.mark.parametrize("bits", [1, 4, 8])
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 32])
+@pytest.mark.parametrize("k,n", SMOLLM_SHAPES)
+def test_kernel_dtypes_and_paths_at_smollm_shapes(cuda, k, n, m, bits):
+    """Both paths (CUDA cores for M <= 8, tensor cores above), f32 and bf16
+    x, f32 and bf16 y, K split over a cluster: exact on integers, within
+    the f32 bound on floats (plus one bf16 ulp for a bf16 y), and a bf16 y
+    is the f32 y rounded once, bit for bit."""
+    for integer in (True, False):
+        x, planes, scale, q = _operands(k * m + n + bits, bits, m, k, n,
+                                        cuda, integer=integer)
+        mag = x.abs().double().cpu() @ (torch.as_tensor(q).abs().double()
+                                        * scale.double().cpu())
+        bound = (k + 2) * 2.0 ** -23 * mag
+        for xd in (torch.float32, torch.bfloat16):
+            xx = x.to(xd)
+            for od in (torch.float32, torch.bfloat16):
+                got = bpm.bitplane_matmul(xx, planes, scale, bits=bits,
+                                          out_dtype=od)
+                want = bpm.bitplane_matmul_plain(xx, planes, scale,
+                                                 bits=bits, out_dtype=od)
+                assert got.dtype == od
+                if od == torch.bfloat16:
+                    y32 = bpm.bitplane_matmul(xx, planes, scale, bits=bits)
+                    assert torch.equal(got, y32.to(od)), xd
+                if integer:
+                    assert torch.equal(got, want), (xd, od)
+                    continue
+                d = (got.double() - want.double()).abs().cpu()
+                tol = bound if od == torch.float32 else \
+                    bound + _bf16_ulp(want.float()).double().cpu()
+                assert bool((d <= tol).all()), (xd, od, float(d.max()))
+
+
+def test_kernel_runs_repeat_bit_for_bit(cuda):
+    for m in (4, 32):
+        x, planes, scale, _ = _operands(m, 8, m, 2560, 960, cuda)
+        first = bpm.bitplane_matmul(x, planes, scale, bits=8)
+        for _ in range(3):
+            assert torch.equal(bpm.bitplane_matmul(x, planes, scale, bits=8),
+                               first)
+
+
+def test_ops_bf16_is_cast_kernel_cast_on_card(cuda):
+    """One launch on a bf16 x and a bf16 y gives the bits of casting x to
+    f32, running the f32 kernel and casting y back."""
+    for m in (4, 32):
+        x, planes, scale, _ = _operands(m + 1, 8, m, 960, 320, cuda)
+        xb = x.to(torch.bfloat16)
+        before = bpm.launches
+        y = ops.bitplane_matmul(xb, planes, scale, bits=8,
+                                out_dtype=torch.bfloat16)
+        assert bpm.launches == before + 1
+        via = bpm.bitplane_matmul(xb.float(), planes, scale,
+                                  bits=8).to(torch.bfloat16)
+        assert torch.equal(y, via)
 
 
 def test_kernel_rejects_bad_operands(cuda):
@@ -249,6 +319,71 @@ def test_step_kernel_warp_segments(cuda, nb, chain, layout):
         assert len(counts) == 1
     assert cs.launches > before
     _assert_grids_equal(grids)
+
+
+@pytest.mark.parametrize("nb", [78, 79, 160, 624])
+@pytest.mark.parametrize("layout", ["shared", "per_slot"])
+def test_step_kernel_long_chains(cuda, nb, layout):
+    """Chained slots past one CTA: 78 blocks fill one CTA, 79 and 160 take
+    a cluster of 2 and 4, 624 the full cluster of 8; about half the
+    instructions write the right neighbour's S, so seams cross CTAs."""
+    rng = np.random.default_rng(5000 + nb + len(layout))
+    grids = _grids(rng, 2, nb, True, cuda)
+
+    def prog(t):
+        f = _random_fields(rng, t)
+        f[:, isa.ENGINE_FIELD_NAMES.index("w1_sel")] = \
+            2 * rng.integers(0, 2, t)
+        return f
+
+    before = cs.launches
+    if layout == "shared":
+        p = prog(70)
+        for g in grids:
+            g.run(p)
+    else:
+        ps = [prog(int(rng.integers(20, 70))) for _ in range(2)]
+        for g in grids:
+            g.run_per_slot(ps)
+    assert cs.launches == before + 1
+    _assert_grids_equal(grids)
+
+
+def test_step_kernel_refuses_chains_past_624_before_launch(cuda):
+    mem = torch.zeros((1, 625, isa.N_ROWS, engine_packed.N_WORDS),
+                      dtype=torch.int32, device=cuda)
+    latch = torch.zeros((1, 625, engine_packed.N_WORDS), dtype=torch.int32,
+                        device=cuda)
+    prog = torch.tensor(_random_fields(np.random.default_rng(0), 4),
+                        device=cuda)
+    before = cs.launches
+    with pytest.raises(ValueError, match="at most 624 blocks"):
+        cs.run_packed(mem, latch, latch.clone(), prog, chain=True,
+                      per_slot=False)
+    assert cs.launches == before
+
+
+def test_step_kernel_more_than_65535_slots(cuda):
+    """65,536 unchained slots of one block, a short program: slots sit on
+    (gridDim.y, gridDim.z), 65,535 to a layer, where the old launch put
+    them on gridDim.y alone and stopped at 65,535."""
+    s = 65536
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    state = [torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                           device=cuda, dtype=torch.int32)
+             for shape in ((s, 1, isa.N_ROWS, engine_packed.N_WORDS),
+                           (s, 1, engine_packed.N_WORDS),
+                           (s, 1, engine_packed.N_WORDS))]
+    prog = torch.tensor(_random_fields(np.random.default_rng(4), 12),
+                        device=cuda)
+    before = cs.launches
+    got = cs.run_packed(*[v.clone() for v in state], prog, chain=False,
+                        per_slot=False)
+    assert cs.launches == before + 1
+    want = cs.run_packed_plain(*[v.clone() for v in state], prog,
+                               chain=False, per_slot=False)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_cuda_engine_decodes_a_frozen_program_once(cuda):

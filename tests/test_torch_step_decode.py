@@ -24,7 +24,8 @@ except ImportError:
     from _minihyp import given, settings, strategies as st
 
 from repro.core.comefa import ComefaGrid as JaxGrid
-from repro_torch.core.comefa import block, engine_packed, isa, schedule
+from repro_torch.core.comefa import (ComefaGrid, block, engine_packed, isa,
+                                    schedule)
 from repro_torch.kernels import comefa_sim
 from repro_torch.kernels import comefa_step as cs
 from repro_torch.serve import comefa_exec
@@ -193,3 +194,56 @@ def test_run_packed_takes_a_decoded_program_on_cpu():
                             per_slot=False)
     with pytest.raises(ValueError, match="decoded program"):
         cs.run_decoded_plain(*state, prog, chain=True, per_slot=False)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch limits, checked before a launch
+# ---------------------------------------------------------------------------
+
+def test_launch_limit_names_the_chain_limit():
+    """A chained slot of 625 blocks is refused with a message that names
+    the limit; 624 (a cluster of 8 CTAs x 78 blocks) and any unchained nb
+    pass."""
+    assert cs.MAX_CHAIN_BLOCKS == 624
+    cs.check_launch(4, 624, True)
+    cs.check_launch(4, 625, False)
+    with pytest.raises(ValueError, match="a chained slot holds at most 624 "
+                                         "blocks on the cuda engine"):
+        cs.check_launch(1, 625, True)
+    with pytest.raises(ValueError, match="at most 2147483647 slots"):
+        cs.check_launch(2 ** 31, 1, False)
+    cs.check_launch(65536, 1, False)
+
+
+@pytest.mark.parametrize("nb,chain,ctas", [
+    (1, False, 1), (7, False, 2), (1, True, 1), (78, True, 1),
+    (79, True, 2), (156, True, 2), (157, True, 4), (160, True, 4),
+    (624, True, 8)])
+def test_ctas_per_slot(nb, chain, ctas):
+    """Unchained, one CTA a warp of six blocks; chained, one CTA up to 13
+    warps, else a cluster of 2, 4 or 8 CTAs of at most 13 warps each."""
+    assert cs.ctas_per_slot(nb, chain) == ctas
+    if chain and ctas > 1:
+        assert -(-nb // cs.BLOCKS_PER_WARP) <= ctas * cs.MAX_WARPS
+
+
+def test_packed_engine_runs_a_625_block_chain_on_the_cpu():
+    """The limit is the card's: the packed engine on the CPU runs a chained
+    625-block grid, equal to the uint8 reference engine."""
+    rng = np.random.default_rng(625)
+    nb = cs.MAX_CHAIN_BLOCKS + 1
+    mem = rng.integers(0, 2, (1, nb, isa.N_ROWS, isa.N_COLS), dtype=np.uint8)
+    carry = rng.integers(0, 2, (1, nb, isa.N_COLS), dtype=np.uint8)
+    mask = rng.integers(0, 2, (1, nb, isa.N_COLS), dtype=np.uint8)
+    prog = _fields(rng, 6, rows=8)
+    prog[:, isa.ENGINE_FIELD_NAMES.index("w1_sel")] = 2     # every step shifts
+    grids = []
+    for eng in ("packed", "reference"):
+        g = ComefaGrid(1, n_blocks=nb, chain=True, engine=eng, device="cpu")
+        g.mem, g.carry, g.mask = mem.copy(), carry.copy(), mask.copy()
+        g.run(prog)
+        grids.append(g)
+    np.testing.assert_array_equal(grids[0].mem, grids[1].mem)
+    np.testing.assert_array_equal(grids[0].carry, grids[1].carry)
+    np.testing.assert_array_equal(grids[0].mask, grids[1].mask)
+    assert grids[0].cycles == grids[1].cycles
