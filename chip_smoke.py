@@ -89,8 +89,27 @@ lines; any failure exits nonzero, and nothing is caught:
      bit-serial matmul also its launch geometry (CTAs, cluster size), the
      rate its binary MMAs reach and the time of one trivial kernel timed
      the same way (the floor of a call);
+ 14. the paper's evaluation layer on the step kernel: the six array
+     kernels of `kernels.comefa_sim` on the cuda engine at the sizes
+     `core/fpga_model/perf.py` prices - eltwise multiply of 100,000 8-bit
+     pairs (625 blocks), GEMV [512, 512] (recode naive and auto), GEMM
+     [128, 128] @ [128, 128] on 128 chained blocks (2-CTA clusters) alone
+     and 4 to a grid, a dot of 2,560 pairs (16 chained blocks, one
+     106,816-instruction launch), the int16 FIR (128 taps, 36-bit
+     accumulator, 4,096 samples) and one of 12,800 taps (80 blocks,
+     clusters) - each exactly equal to its numpy oracle, with the step
+     kernel's launch count reset just before and read just after and
+     equal to the simulator's dispatches; the unoptimised dot's and
+     FIR's modelled cycles equal to `timing`'s closed forms; each call's
+     wall time, launches, host syncs, device puts and modelled cycles;
+     after the counted path, the step kernel held to its plain version
+     (torch.equal on mem, carry and mask from the same state) on the
+     GEMM's first and last tiles, the dot's one launch and every dispatch
+     of three samples of the long FIR; and `fpga_model.perf.run_all()`'s
+     Fig 9 table on one line;
 
-then one JSON line of kernel records, the card's name and power limit as
+then one JSON line of kernel records (the step kernel's launches are
+phase 8's and phase 14's), the card's name and power limit as
 nvidia-smi prints them, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
@@ -1409,6 +1428,284 @@ def phase_bitserial_timing(ks, ops, bitplane, data, dev, smi):
     return rows
 
 
+# phase 14: the paper's evaluation layer (`kernels.comefa_sim`'s array
+# kernels) on the cuda engine at the sizes the FPGA model prices
+# (`core/fpga_model/perf.py`): eltwise's n, gemv's h, the int16 FIR with a
+# 36-bit accumulator; GEMMs of 128 blocks (2-CTA clusters) and a FIR of 80
+EVAL_BITS = 8
+EVAL_ELTWISE_N = 100_000          # perf.eltwise: 625 blocks
+EVAL_GEMV_H = 512                 # perf.gemv
+EVAL_GEMM = (128, 128, 128)       # m, k, n
+EVAL_GEMM_BLOCKS = 128            # 103 tiles, a 2-CTA cluster a slot
+EVAL_GEMM_SLOTS = 4
+EVAL_DOT_N = 2560                 # 16 chained blocks
+EVAL_FIR = (128, 16, 36, 4096)    # taps, tap/sample bits, acc bits, samples
+EVAL_FIR_CHECK_SAMPLES = 256      # the unoptimised run held to fir_cycles
+EVAL_LONG_FIR = (12_800, 256)     # taps (80 blocks), samples
+
+
+def _sim_counts(metrics):
+    """The simulator's counters, summed over labels: dispatches (all and
+    on the cuda engine), modelled cycles, host syncs and device puts."""
+    def total(name, engine=None):
+        return sum(v for labels, v in
+                   metrics.counter(f"comefa.{name}").series().items()
+                   if engine is None or ("engine", engine) in labels)
+    return {"dispatches": total("dispatches"),
+            "cuda": total("dispatches", "cuda"),
+            "cycles": total("dispatch_cycles"),
+            "host_syncs": total("host_syncs"),
+            "device_puts": total("device_puts")}
+
+
+class _Breakdown:
+    """Where one phase-14 call's wall time goes: host seconds in the cuda
+    engine's state downloads (`to_host`, which waits for the kernels
+    queued before it) and uploads (`to_device`) and in its dispatches
+    (`run`: decoding a new program on the device, enqueueing the
+    launch), and the step kernel's device time, from CUDA events around
+    each launch (an upper bound: onto an idle stream, the time between
+    the events includes the launch's own enqueue).  The rest of the wall
+    time is host work: building and encoding programs, numpy placement
+    and extraction."""
+
+    HOST = ("to_host", "to_device", "run", "run_per_slot")
+
+    def __init__(self, cs, engine):
+        self.cs, self.engine, self.launch = cs, engine, cs.run_packed
+
+    def __enter__(self):
+        self.host = dict.fromkeys(self.HOST, 0.0)
+        self.events = []
+        for name in self.HOST:
+            def timed(*args, _real=getattr(self.engine, name), _name=name,
+                      **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _real(*args, **kw)
+                finally:
+                    self.host[_name] += time.perf_counter() - t0
+            setattr(self.engine, name, timed)
+
+        def launch(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.launch(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+        self.cs.run_packed = launch
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.HOST:
+            delattr(self.engine, name)
+        self.cs.run_packed = self.launch
+        torch.cuda.synchronize()
+        self.kernel_s = sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+        return False
+
+
+def _fir_oracle(taps, x, acc_bits):
+    """The direct-form FIR in int64, reduced to the accumulator's width
+    (the array's adds carry out of its top row and drop the carry)."""
+    y = np.convolve(taps.astype(np.int64), x.astype(np.int64))[:len(x)]
+    return y & ((1 << acc_bits) - 1)
+
+
+def _hold_to_plain(engine_packed, label, fn, picks):
+    """Run `fn` with the cuda engine's dispatches wrapped: dispatch i, for
+    i in `picks`, also runs the same program from the same state through
+    the plain version (the packed torch scan, on the card), and the step
+    kernel's mem, carry and mask must equal it.  Returns the instructions
+    held."""
+    cuda, plain = engine_packed.get_engine("cuda"), engine_packed.get_engine(
+        "packed")
+    seen, held = [0], []
+
+    def run(state, mat, chain, _real=cuda.run):
+        i = seen[0]
+        seen[0] += 1
+        if i not in picks:
+            return _real(state, mat, chain)
+        ref = plain.run(tuple(t.clone() for t in state), mat, chain)
+        out = _real(state, mat, chain)
+        for name, got, want in zip(("mem", "carry", "mask"), out, ref):
+            if not torch.equal(got, want):
+                fail(f"{label}: dispatch {i} ({mat.shape[0]} instructions)"
+                     f": the step kernel's {name} differs from the plain "
+                     f"version's")
+        held.append(int(mat.shape[0]))
+        return out
+    cuda.run = run
+    try:
+        fn()
+    finally:
+        del cuda.run
+    if len(held) != len(picks):
+        fail(f"{label}: {len(held)} of {len(picks)} dispatches held")
+    return held
+
+
+def phase_eval_layer(cs, comefa_sim, metrics, dev):
+    """The six array kernels of `comefa_sim` on the cuda engine, each held
+    exactly to its numpy oracle, its step-kernel launches to the
+    simulator's dispatches; the unoptimised dot's and FIR's cycles to
+    their closed forms.  The step kernel's launch count is set to 0 just
+    before and read just after; returns it."""
+    from repro_torch.core.comefa import engine_packed, program, schedule
+    from repro_torch.core.comefa import timing
+    from repro_torch.core.comefa.isa import ceil_log2
+    from repro_torch.core.fpga_model import perf
+    rng = np.random.default_rng(14)
+    ctas = cs.ctas_per_slot(EVAL_GEMM_BLOCKS, True)
+    ctas_fir = cs.ctas_per_slot(-(-EVAL_LONG_FIR[0] // 160), True)
+    print(f"[14 eval] chained slots of {EVAL_GEMM_BLOCKS} blocks (GEMM) and "
+          f"{-(-EVAL_LONG_FIR[0] // 160)} blocks (FIR) run on clusters of "
+          f"{ctas} and {ctas_fir} CTAs")
+    if ctas < 2 or ctas_fir < 2:
+        fail("phase 14's long chains do not reach the cluster path")
+
+    def call(label, fn, want):
+        before, l0 = _sim_counts(metrics), cs.launches
+        with _Breakdown(cs, engine_packed.get_engine("cuda")) as br:
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        d = {k: v - before[k] for k, v in _sim_counts(metrics).items()}
+        launched = cs.launches - l0
+        trips = br.host["to_host"] + br.host["to_device"]
+        disp = br.host["run"] + br.host["run_per_slot"]
+        print(f"[14 eval] {label}: {dt:.3f} s, {launched} step-kernel "
+              f"launches, {d['dispatches']} dispatches, {d['host_syncs']} "
+              f"host syncs, {d['device_puts']} device puts, {d['cycles']} "
+              f"modelled cycles; state round trips {trips:.3f} s "
+              f"(downloads {br.host['to_host']:.3f}, uploads "
+              f"{br.host['to_device']:.3f}), dispatches {disp:.3f} s, "
+              f"step kernel {br.kernel_s * 1e3:.3f} ms on the device, the "
+              f"rest (program build and encode, placement) "
+              f"{dt - trips - disp:.3f} s")
+        if not np.array_equal(np.asarray(got), np.asarray(want)):
+            fail(f"{label}: the result differs from the numpy oracle")
+        if launched == 0 or launched != d["dispatches"] or \
+                d["cuda"] != d["dispatches"]:
+            fail(f"{label}: {launched} launches for {d['dispatches']} "
+                 f"dispatches ({d['cuda']} on the cuda engine)")
+        return d
+
+    bits = EVAL_BITS
+    t_phase = time.perf_counter()
+    # ---- the evaluation path, counted ----
+    cs.launches = 0
+    a = rng.integers(0, 1 << bits, EVAL_ELTWISE_N)
+    b = rng.integers(0, 1 << bits, EVAL_ELTWISE_N)
+    call(f"eltwise_mul of {EVAL_ELTWISE_N} {bits}-bit pairs "
+         f"({-(-EVAL_ELTWISE_N // 160)} blocks)",
+         lambda: comefa_sim.comefa_eltwise_mul(a, b, bits=bits, device=dev),
+         a * b)
+    h = EVAL_GEMV_H
+    w = rng.integers(0, 1 << bits, (h, h))
+    x = rng.integers(0, 1 << bits, h)
+    for recode in ("naive", "auto"):
+        call(f"gemv [{h}, {h}] x [{h}], {bits}-bit, acc 32, recode={recode}",
+             lambda: comefa_sim.comefa_gemv(w, x, w_bits=bits, x_bits=bits,
+                                            acc_bits=32, recode=recode,
+                                            device=dev),
+             (w * x[:, None]).sum(0))
+    m, k, n = EVAL_GEMM
+    a = rng.integers(0, 1 << bits, (EVAL_GEMM_SLOTS, m, k))
+    b = rng.integers(0, 1 << bits, (EVAL_GEMM_SLOTS, k, n))
+    gemm_ab = a[0], b[0]
+    call(f"gemm [{m}, {k}] @ [{k}, {n}], {bits}-bit, n_blocks "
+         f"{EVAL_GEMM_BLOCKS} ({ctas}-CTA clusters)",
+         lambda: comefa_sim.comefa_gemm(a[0], b[0], bits=bits,
+                                        n_blocks=EVAL_GEMM_BLOCKS,
+                                        device=dev),
+         a[0] @ b[0])
+    call(f"gemm_batched G={EVAL_GEMM_SLOTS} of the same",
+         lambda: comefa_sim.comefa_gemm_batched(a, b, bits=bits,
+                                                n_blocks=EVAL_GEMM_BLOCKS,
+                                                device=dev),
+         np.einsum("gmk,gkn->gmn", a, b))
+    a = rng.integers(0, 1 << bits, EVAL_DOT_N)
+    b = rng.integers(0, 1 << bits, EVAL_DOT_N)
+    dot, dot_ab = int((a * b).sum()), (a, b)
+    nb = -(-EVAL_DOT_N // 160)
+    t0 = time.perf_counter()
+    call(f"dot of {EVAL_DOT_N} {bits}-bit pairs ({nb} chained blocks)",
+         lambda: comefa_sim.comefa_dot(a, b, bits=bits, device=dev), dot)
+    prog = comefa_sim._PROGRAMS[("dot", bits, nb, True)][0]
+    d = call("dot, unoptimised",
+             lambda: comefa_sim.comefa_dot(a, b, bits=bits, optimized=False,
+                                           device=dev), dot)
+    raw = comefa_sim._PROGRAMS[("dot", bits, nb, False)][0]
+    steps, chain_steps = program.full_reduce_steps(nb)
+    closed = (timing.mul_cycles(bits) + steps + chain_steps
+              + timing.chained_reduction_cycles(2 * bits, n_blocks=nb))
+    print(f"[14 eval] dot programs: {prog.cycles} instructions optimised, "
+          f"{raw.cycles} unoptimised = mul_cycles + {steps + chain_steps} "
+          f"+ chained_reduction_cycles = {closed}; both calls with their "
+          f"builds {time.perf_counter() - t0:.3f} s")
+    if raw.cycles != closed or d["cycles"] != closed:
+        fail(f"unoptimised dot: {raw.cycles} program cycles, {d['cycles']} "
+             f"dispatched, closed form {closed}")
+    n_taps, xb, acc, n_samples = EVAL_FIR
+    taps = rng.integers(0, 1 << xb, n_taps)
+    x = rng.integers(0, 1 << xb, n_samples)
+    want = _fir_oracle(taps, x, acc)
+    call(f"fir of {n_taps} taps, {xb}-bit taps and samples, {acc}-bit acc, "
+         f"{n_samples} samples (1 block)",
+         lambda: comefa_sim.comefa_fir(taps, x, tap_bits=xb, x_bits=xb,
+                                       acc_bits=acc, device=dev), want)
+    xs = x[:EVAL_FIR_CHECK_SAMPLES]
+    d = call(f"fir, unoptimised, {len(xs)} samples",
+             lambda: comefa_sim.comefa_fir(taps, xs, tap_bits=xb, x_bits=xb,
+                                           acc_bits=acc, optimized=False,
+                                           device=dev), want[:len(xs)])
+    closed = timing.fir_cycles(len(xs), xb, acc, x_values=xs)
+    print(f"[14 eval] unoptimised fir: {d['cycles']} cycles, fir_cycles "
+          f"{closed}")
+    if d["cycles"] != closed:
+        fail("unoptimised fir cycles differ from timing.fir_cycles")
+    n_taps, n_samples = EVAL_LONG_FIR
+    taps = rng.integers(0, 1 << xb, n_taps)
+    x = rng.integers(0, 1 << xb, n_samples)
+    acc = xb + xb + ceil_log2(n_taps)         # comefa_fir's default
+    call(f"fir of {n_taps} taps ({-(-n_taps // 160)} chained blocks, "
+         f"{ctas_fir}-CTA clusters), {xb}-bit, {acc}-bit acc, {n_samples} "
+         f"samples",
+         lambda: comefa_sim.comefa_fir(taps, x, tap_bits=xb, x_bits=xb,
+                                       device=dev),
+         _fir_oracle(taps, x, acc))
+    launched = cs.launches
+    # ---- end of the counted evaluation path ----
+    print(f"[14 eval] {launched} step-kernel launches in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    # the step kernel against its plain version on real programs: the
+    # GEMM's first and last tiles (128 blocks, clusters), the dot's one
+    # long launch, every dispatch of three samples of the long FIR
+    t0 = time.perf_counter()
+    n_tiles = sum(1 for _ in schedule.plan_gemm(
+        m, k, n, bits, n_blocks=EVAL_GEMM_BLOCKS).tiles())
+    held = _hold_to_plain(
+        engine_packed, "gemm", lambda: comefa_sim.comefa_gemm(
+            *gemm_ab, bits=bits, n_blocks=EVAL_GEMM_BLOCKS, device=dev),
+        {0, n_tiles - 1})
+    held += _hold_to_plain(
+        engine_packed, "dot", lambda: comefa_sim.comefa_dot(
+            *dot_ab, bits=bits, device=dev), {0})
+    held += _hold_to_plain(
+        engine_packed, "long fir", lambda: comefa_sim.comefa_fir(
+            taps, x[:3], tap_bits=xb, x_bits=xb, device=dev), set(range(7)))
+    print(f"[14 eval] step kernel == plain version (torch.equal on mem, "
+          f"carry, mask) on {len(held)} real dispatches of {held} "
+          f"instructions: {time.perf_counter() - t0:.1f} s")
+    print(f"[14 eval] Fig 9 (perf.run_all): {json.dumps(perf.run_all())}")
+    return launched
+
+
 def main():
     sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
@@ -1465,6 +1762,9 @@ def main():
           f"{serial_launched}")
     serial = phase_bitserial_timing(ks, ops, bitplane, data, dev, smi)
     del data
+    eval_launched = phase_eval_layer(cs, comefa_sim, metrics, dev)
+    print(f"[14 eval] step kernel launches: phase 8 {step_launched}, "
+          f"phase 14 {eval_launched}")
     record = {"kernels": [
         {"name": "bitplane_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
@@ -1473,7 +1773,8 @@ def main():
         {"name": "comefa_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/comefa_step.cu",
          "replaces": "src/repro/kernels/comefa_step.py:80",
-         "launches": step_launched, "max_abs_err": step_err, **timing}]}
+         "launches": step_launched + eval_launched,
+         "max_abs_err": step_err, **timing}]}
     for name, (source, replaces) in BITSERIAL_KERNELS.items():
         record["kernels"].append({
             "name": name, "route": "cuda",

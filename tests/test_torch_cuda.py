@@ -3,7 +3,9 @@
 card against the CPU, the CoMeFa step kernel against its plain version
 and the uint8 reference engine (its warp segments at nb 1-17, chained
 slots on clusters up to 624 blocks, 65,536 slots, its decoded-program
-cache), and the bit-serial and
+cache), the six array kernels of `comefa_sim` (GEMMs on 79- and
+128-block chains and a 12,800-tap FIR, so clusters run real programs),
+and the bit-serial and
 bulk-bitwise kernels (bit transpose and untranspose, search-replace, RAID
 XOR, bit-serial reduce and matmul) against their plain versions, bit for
 bit, with the bit-serial matmul's binary-MMA tiling swept over ragged
@@ -416,6 +418,77 @@ def test_grid_executor_on_card_matches_reference(cuda):
 
 def test_cuda_engine_is_the_default_on_the_card(cuda):
     assert ComefaGrid(2, device=cuda).engine.name == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# the paper's evaluation layer: comefa_sim's array kernels on the card
+# ---------------------------------------------------------------------------
+
+def _fir_ref(taps, x):
+    return np.convolve(taps.astype(np.int64), x.astype(np.int64))[:len(x)]
+
+
+def _launched(fn):
+    """fn() and the step-kernel launches it made (at least one)."""
+    before = cs.launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert cs.launches > before
+    return out
+
+
+@pytest.mark.parametrize("recode", ["naive", "booth", "naf", "auto"])
+def test_comefa_sim_gemv_on_card(cuda, recode):
+    rng = np.random.default_rng(21)
+    w = rng.integers(0, 32, size=(40, 200))
+    x = rng.integers(0, 32, size=40)
+    got = _launched(lambda: comefa_sim.comefa_gemv(
+        w, x, w_bits=5, x_bits=5, acc_bits=24, recode=recode, device=cuda))
+    np.testing.assert_array_equal(got, (w * x[:, None]).sum(0))
+
+
+def test_comefa_sim_eltwise_and_dot_on_card(cuda):
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 256, size=1000)
+    b = rng.integers(0, 256, size=1000)
+    got = _launched(lambda: comefa_sim.comefa_eltwise_mul(a, b, bits=8,
+                                                          device=cuda))
+    np.testing.assert_array_equal(got, a * b)
+    for n, bits in ((150, 4), (640, 3)):        # 1 and 4 chained blocks
+        a = rng.integers(0, 1 << bits, size=n)
+        b = rng.integers(0, 1 << bits, size=n)
+        assert _launched(lambda: comefa_sim.comefa_dot(
+            a, b, bits=bits, device=cuda)) == int((a * b).sum())
+
+
+@pytest.mark.parametrize("m,k,n,bits,n_blocks", [
+    (4, 16, 7, 3, 1), (5, 40, 9, 2, 4),
+    (4, 256, 3, 3, 79),          # 256-lane groups across block seams
+    (3, 256, 5, 2, 128)])        # and on 2-CTA clusters
+def test_comefa_sim_gemm_on_card(cuda, m, k, n, bits, n_blocks):
+    rng = np.random.default_rng(m * k + n)
+    a = rng.integers(0, 1 << bits, size=(m, k))
+    b = rng.integers(0, 1 << bits, size=(k, n))
+    got = _launched(lambda: comefa_sim.comefa_gemm(
+        a, b, bits=bits, n_blocks=n_blocks, device=cuda))
+    np.testing.assert_array_equal(got, a @ b)
+    ga = np.stack([a, a[::-1]])
+    gb = np.stack([b, b[:, ::-1]])
+    got = _launched(lambda: comefa_sim.comefa_gemm_batched(
+        ga, gb, bits=bits, n_blocks=n_blocks, device=cuda))
+    np.testing.assert_array_equal(got, np.einsum("gmk,gkn->gmn", ga, gb))
+
+
+@pytest.mark.parametrize("n_taps,recode", [
+    (96, "naive"), (290, "booth"), (520, "naf"),
+    (12_800, "naive")])          # 80 chained blocks: 2-CTA clusters
+def test_comefa_sim_fir_on_card(cuda, n_taps, recode):
+    rng = np.random.default_rng(n_taps)
+    taps = rng.integers(0, 16, size=n_taps)
+    x = rng.integers(0, 16, size=5)
+    got = _launched(lambda: comefa_sim.comefa_fir(
+        taps, x, tap_bits=4, x_bits=4, recode=recode, device=cuda))
+    np.testing.assert_array_equal(got, _fir_ref(taps, x))
 
 
 # ---------------------------------------------------------------------------
