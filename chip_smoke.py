@@ -107,10 +107,31 @@ lines; any failure exits nonzero, and nothing is caught:
      GEMM's first and last tiles, the dot's one launch and every dispatch
      of three samples of the long FIR; and `fpga_model.perf.run_all()`'s
      Fig 9 table on one line;
+ 15. the recurrent and sliding-window families on the bit-plane kernel:
+     (a) the kernel at every distinct packed projection shape of
+     RecurrentGemma-2B, xLSTM-1.3B, Gemma-2-27B, Gemma-3-27B and
+     StarCoder2-7B (K up to 36,864, N down to 256) against its plain
+     version with phase 2's tolerances, at M = 4 in bf16 and M = 32 in
+     f32, and timed at M = 4 in bf16 beside its byte bound and bf16
+     torch.matmul; (b) RecurrentGemma-2B and (c) xLSTM-1.3B at full width
+     and depth (26 and 48 layers, bf16, 8-bit planes, random seeded
+     params) through `generate` and `serve_continuous` as in phase 4, with
+     the kernel's launch count reset just before and read just after and
+     equal to the model's packed projections (146 and 180) times the
+     decode-path calls; one decode step with the kernel against the plain
+     version, logits within 5% of the largest (for xLSTM, whose gates
+     carry a one-ulp bf16 flip far, shown in bf16 and held on an f32 copy
+     of the activations); every packed projection of that step, kernel
+     against plain on the same activations, within the f32 bound plus one
+     bf16 ulp; no cast around any packed projection; the device's busy
+     share; (d) Gemma-2-27B, Gemma-3-27B and StarCoder2-7B at full width
+     and one pattern period deep (2, 6 and 2 layers) through a 4-step
+     `generate`, counted alike, with the decode step and casts checked;
 
-then one JSON line of kernel records (the step kernel's launches are
-phase 8's and phase 14's), the card's name and power limit as
-nvidia-smi prints them, and the result line
+then one JSON line of kernel records (the bit-plane kernel's launches are
+phase 4's and phase 15's, the step kernel's phase 8's and phase 14's),
+the card's name and power limit as nvidia-smi prints them, and the
+result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 import copy
@@ -196,6 +217,38 @@ def _operands(gen, dev, bits, m, k, n, integer):
     return x, q, scale
 
 
+def _kernel_check(bpm, bitplane, gen, dev, m, k, n, bits, dtypes):
+    """The kernel against its plain version at one shape and bit width, for
+    each x dtype in `dtypes`: exact on integer x with scale 1; within the
+    f32 bound for two orders of one sum on float x; a bf16 y equal to the
+    f32 y rounded once.  Returns (exact, rounded, max |d|/bound,
+    max |d|)."""
+    xi, qi, ones = _operands(gen, dev, bits, m, k, n, integer=True)
+    pi = bitplane.pack(qi, bits)
+    x, q, scale = _operands(gen, dev, bits, m, k, n, integer=False)
+    planes = bitplane.pack(q, bits)
+    exact, rounded, ratio, worst = True, True, 0.0, 0.0
+    for xd in dtypes:
+        yk = bpm.bitplane_matmul(xi.to(xd), pi, ones, bits=bits)
+        yp = bpm.bitplane_matmul_plain(xi.to(xd), pi, ones, bits=bits)
+        torch.cuda.synchronize()
+        exact = exact and torch.equal(yk, yp)
+        xx = x.to(xd)
+        yk = bpm.bitplane_matmul(xx, planes, scale, bits=bits)
+        yp = bpm.bitplane_matmul_plain(xx, planes, scale, bits=bits)
+        # a bf16 y (the main path's) is the f32 y rounded once
+        yb = bpm.bitplane_matmul(xx, planes, scale, bits=bits,
+                                 out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        rounded = rounded and torch.equal(yb, yk.to(torch.bfloat16))
+        bound = (k + 2) * 2.0 ** -23 * (
+            xx.abs().double() @ (q.abs().double() * scale.double()))
+        err = (yk - yp).abs().double()
+        ratio = max(ratio, float((err / bound).max()))
+        worst = max(worst, float(err.max()))
+    return exact, rounded, ratio, worst
+
+
 def phase_kernel_vs_plain(bpm, bitplane, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = 0.0
@@ -203,29 +256,10 @@ def phase_kernel_vs_plain(bpm, bitplane, dev):
               for k, n in SMOLLM_SHAPES] + [RAGGED, (M_PREFILL,) + RAGGED[1:]]
     for m, k, n in shapes:
         for bits in (4, BITS):
-            xi, qi, ones = _operands(gen, dev, bits, m, k, n, integer=True)
-            pi = bitplane.pack(qi, bits)
-            x, q, scale = _operands(gen, dev, bits, m, k, n, integer=False)
-            planes = bitplane.pack(q, bits)
-            exact, rounded, ratio = True, True, 0.0
-            for xd in (torch.float32, torch.bfloat16):
-                yk = bpm.bitplane_matmul(xi.to(xd), pi, ones, bits=bits)
-                yp = bpm.bitplane_matmul_plain(xi.to(xd), pi, ones, bits=bits)
-                torch.cuda.synchronize()
-                exact = exact and torch.equal(yk, yp)
-                xx = x.to(xd)
-                yk = bpm.bitplane_matmul(xx, planes, scale, bits=bits)
-                yp = bpm.bitplane_matmul_plain(xx, planes, scale, bits=bits)
-                # a bf16 y (the main path's) is the f32 y rounded once
-                yb = bpm.bitplane_matmul(xx, planes, scale, bits=bits,
-                                         out_dtype=torch.bfloat16)
-                torch.cuda.synchronize()
-                rounded = rounded and torch.equal(yb, yk.to(torch.bfloat16))
-                bound = (k + 2) * 2.0 ** -23 * (
-                    xx.abs().double() @ (q.abs().double() * scale.double()))
-                err = (yk - yp).abs().double()
-                ratio = max(ratio, float((err / bound).max()))
-                worst = max(worst, float(err.max()))
+            exact, rounded, ratio, err = _kernel_check(
+                bpm, bitplane, gen, dev, m, k, n, bits,
+                (torch.float32, torch.bfloat16))
+            worst = max(worst, err)
             path = bpm.geometry(m, k, n, _sms())["path"]
             print(f"[2 kernel] M={m} K={k} N={n} bits={bits} ({path} path), "
                   f"x f32 and bf16: integer exact={exact}; float max "
@@ -263,7 +297,8 @@ def phase_reduced(bpm, configs, common, lm, engine, dev):
           f"kernel launches={launched}")
     if not same or d > 1e-4:
         fail("reduced model on the card disagrees with the CPU")
-    if launched != 7 * cfg.n_layers * (prompt.shape[1] + steps):
+    if launched != lm.packed_projections(gpu_model) * (prompt.shape[1]
+                                                        + steps):
         fail(f"reduced generate launched the kernel {launched} times")
 
 
@@ -284,8 +319,42 @@ def phase_full(bpm, configs, common, lm, engine, dev):
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, {BITS}-bit planes; "
           f"{n_params} stored values, init {time.perf_counter() - t0:.1f} s")
-    gen = torch.Generator(device=dev).manual_seed(1)
     b, s, steps = M_DECODE, 8, 24
+    prompt, out, gen_s, reqs, outs, stats, serve_s, launched = _counted_run(
+        bpm, engine, model, dev, b, s, steps, serve=True)
+    calls = (s + steps) + stats["steps"]
+    per_call = lm.packed_projections(model)
+    expect = per_call * calls
+    emitted = sum(len(o) for o in outs)
+    print(f"[4 full] generate: {b}x{s} prompt, {steps} steps in "
+          f"{gen_s:.3f} s = {b * steps / gen_s:.1f} tokens/s, "
+          f"{1e3 * gen_s / (s + steps):.2f} ms per decode step")
+    print(f"[4 full] serve_continuous: {len(reqs)} requests, {emitted} "
+          f"tokens in {serve_s:.3f} s = {emitted / serve_s:.1f} tokens/s, "
+          f"{stats['steps']} batched steps, occupancy "
+          f"{stats['occupancy']:.3f}")
+    print(f"[4 full] bit-plane kernel launches: {launched} (expected "
+          f"{per_call // cfg.n_layers} x {cfg.n_layers} x {calls} "
+          f"decode-path calls = {expect})")
+    if launched != expect or launched == 0:
+        fail("the main path did not run every projection through the kernel")
+    _check_tokens(cfg, out, b, steps, reqs, outs)
+    _decode_vs_plain(bpm, common, lm, model, prompt, out[:, :1].long(),
+                     "4 full", f"{cfg.n_layers} residual layers")
+    _check_casts(bpm, lm, model, prompt, out[:, :1].long(), "4 casts")
+    step_s = gen_s / (s + steps)
+    profile_decode(lambda: engine.generate(model, prompt, steps=4,
+                                           max_len=s + 5), s + 4, step_s)
+    return launched, step_s
+
+
+def _counted_run(bpm, engine, model, dev, b, s, steps, serve):
+    """The main path of one model: a warm-up, then with the bit-plane
+    kernel's launch count reset just before and read just after,
+    `generate` (b x s seeded prompt, `steps` new tokens) and, with
+    `serve`, `serve_continuous` (8 requests over 4 slots)."""
+    cfg = model.cfg
+    gen = torch.Generator(device=dev).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
 
     # warm-up (first launches, allocator), not counted
@@ -299,34 +368,23 @@ def phase_full(bpm, configs, common, lm, engine, dev):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     rng = torch.Generator().manual_seed(2)
-    reqs = []
-    for i in range(8):
+    reqs, outs, stats, serve_s = [], [], {"steps": 0}, 0.0
+    for i in range(8 if serve else 0):
         plen = 3 + i % 6
         p = torch.randint(0, cfg.vocab, (plen,), generator=rng).numpy()
         reqs.append(engine.Request(p, 4 + (3 * i) % 9))
-    stats = {}
-    t0 = time.perf_counter()
-    outs = engine.serve_continuous(model, reqs, slots=4, max_len=24,
-                                   stats=stats)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
+    if serve:
+        t0 = time.perf_counter()
+        outs = engine.serve_continuous(model, reqs, slots=4, max_len=24,
+                                       stats=stats)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
     launched = bpm.launches
     # ---- end of the counted main path ----
+    return prompt, out, gen_s, reqs, outs, stats, serve_s, launched
 
-    calls = (s + steps) + stats["steps"]
-    expect = 7 * cfg.n_layers * calls
-    emitted = sum(len(o) for o in outs)
-    print(f"[4 full] generate: {b}x{s} prompt, {steps} steps in "
-          f"{gen_s:.3f} s = {b * steps / gen_s:.1f} tokens/s, "
-          f"{1e3 * gen_s / (s + steps):.2f} ms per decode step")
-    print(f"[4 full] serve_continuous: {len(reqs)} requests, {emitted} "
-          f"tokens in {serve_s:.3f} s = {emitted / serve_s:.1f} tokens/s, "
-          f"{stats['steps']} batched steps, occupancy "
-          f"{stats['occupancy']:.3f}")
-    print(f"[4 full] bit-plane kernel launches: {launched} (expected 7 x "
-          f"{cfg.n_layers} x {calls} decode-path calls = {expect})")
-    if launched != expect or launched == 0:
-        fail("the main path did not run every projection through the kernel")
+
+def _check_tokens(cfg, out, b, steps, reqs, outs):
     out_cpu = out.cpu()
     if tuple(out_cpu.shape) != (b, steps) or int(out_cpu.min()) < 0 or \
             int(out_cpu.max()) >= cfg.vocab:
@@ -335,12 +393,24 @@ def phase_full(bpm, configs, common, lm, engine, dev):
         if len(o) != r.steps or o.min() < 0 or o.max() >= cfg.vocab:
             fail("serve_continuous returned a wrong token stream")
 
-    # one decode step, kernel vs plain on the card, from the same cache
-    states = lm.decode_state_init(cfg, b, 16, dev)
+
+def _primed(lm, model, prompt):
+    """Decode states primed with `prompt` (max_len 16), and a copy."""
+    s = prompt.shape[1]
+    states = lm.decode_state_init(model.cfg, prompt.shape[0], 16,
+                                  model.device)
     for t in range(s):
         _, states = lm.decode_step(model, prompt[:, t:t + 1], states, t)
-    saved = [{k: v.clone() for k, v in st.items()} for st in states]
-    nxt = out[:, :1].long()
+    return states, [{k: v.clone() for k, v in st.items()} for st in states]
+
+
+def _decode_vs_plain(bpm, common, lm, model, prompt, nxt, tag, depth,
+                     held=True):
+    """One decode step with the kernel against one with its plain version
+    on the card, from the same primed states; with `held`, the logits
+    must agree within 5% of the largest."""
+    s = prompt.shape[1]
+    states, saved = _primed(lm, model, prompt)
     lk, _ = lm.decode_step(model, nxt, states, s)
     prev = common.set_linear_hook(_plain_hook(bpm))
     try:
@@ -355,25 +425,70 @@ def phase_full(bpm, configs, common, lm, engine, dev):
     agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
     # Both paths sum in f32 in different orders and round every projection
     # output to bf16; a rare 1-ulp bf16 flip (2^-8 relative) is carried by
-    # 32 residual layers, so logits are held to 5% of their largest value.
-    print(f"[4 full] decode step kernel vs plain on the card: logits "
-          f"max|d|={d:.3e}, max|logit|={scale:.3e}, ratio {d / scale:.2e} "
-          f"(tolerance 5e-2), argmax agreement {agree:.2f}")
-    if d > 5e-2 * scale:
-        fail("full-model decode step: kernel and plain disagree")
+    # the residual layers, so logits are held to 5% of their largest value.
+    print(f"[{tag}] decode step kernel vs plain on the card ({depth}, "
+          f"{model.cfg.dtype}): logits max|d|={d:.3e}, max|logit|="
+          f"{scale:.3e}, ratio {d / scale:.2e} "
+          f"({'tolerance 5e-2' if held else 'not held'}), argmax agreement "
+          f"{agree:.2f}")
+    if held and d > 5e-2 * scale:
+        fail(f"{model.cfg.name} decode step: kernel and plain disagree")
+
+
+def _hold_projections(bpm, bitplane, common, lm, model, prompt, nxt, tag):
+    """Every packed projection of one decode step through both the kernel
+    and its plain version on the same x (the model's real activations):
+    the kernel's y, in the model's dtype, within the f32 bound for two
+    orders of one sum plus one ulp of that dtype of the plain y."""
+    calls, worst = [0], [0.0]
+    eps = 2.0 ** -7 if model.cfg.adtype == torch.bfloat16 else 2.0 ** -23
+
+    def hook(params, x2, bits):
+        packed, scale = params["packed"], params["scale"]
+        k = x2.shape[1]
+        yk = bpm.bitplane_matmul(x2, packed, scale, bits=bits,
+                                 out_dtype=x2.dtype)
+        yp = bpm.bitplane_matmul_plain(x2, packed, scale, bits=bits)
+        q = bitplane.unpack(packed, bits, axis=0)
+        mag = x2.abs().double() @ (q.abs().double() * scale.double())
+        f32 = (k + 2) * 2.0 ** -23 * mag
+        top = yp.abs().double() + f32
+        ulp = torch.exp2(torch.floor(torch.log2(
+            top.clamp_min(2.0 ** -126)))) * eps
+        d = (yk.double() - yp.double()).abs()
+        worst[0] = max(worst[0], float((d / (f32 + ulp)).max()))
+        calls[0] += 1
+        return yk
+
+    _, saved = _primed(lm, model, prompt)
+    prev = common.set_linear_hook(hook)
+    try:
+        lm.decode_step(model, nxt, saved, prompt.shape[1])
+    finally:
+        common.set_linear_hook(prev)
+    torch.cuda.synchronize()
+    print(f"[{tag}] every packed projection of one decode step, kernel vs "
+          f"plain on the same activations: {calls[0]} calls, max "
+          f"|d|/(f32 bound + one {model.cfg.dtype} ulp) = {worst[0]:.3f}")
+    if calls[0] != lm.packed_projections(model) or worst[0] > 1:
+        fail(f"{model.cfg.name}: a projection's kernel output is outside "
+             f"the bound")
+
+
+def _check_casts(bpm, lm, model, prompt, nxt, tag):
+    """Every packed projection of one decode step hands the kernel x in
+    the model's dtype and takes y in it."""
+    cfg = model.cfg
+    _, saved = _primed(lm, model, prompt)
     calls, casts = _projection_dtypes(
-        bpm, lambda: lm.decode_step(model, nxt, saved, s))
+        bpm, lambda: lm.decode_step(model, nxt, saved, prompt.shape[1]))
     seen = sorted({(str(a), str(b)) for a, b in calls})
-    print(f"[4 casts] one decode step: {len(calls)} bit-plane kernel calls, "
+    print(f"[{tag}] one decode step: {len(calls)} bit-plane kernel calls, "
           f"(x, y) dtypes {seen}: no cast before or after any packed "
           f"projection; {casts} aten._to_copy casts in the whole step")
-    if len(calls) != 7 * cfg.n_layers or \
+    if len(calls) != lm.packed_projections(model) or \
             any(a != cfg.adtype or b != cfg.adtype for a, b in calls):
         fail("a packed projection casts around the bit-plane kernel")
-    step_s = gen_s / (s + steps)
-    profile_decode(lambda: engine.generate(model, prompt, steps=4,
-                                           max_len=s + 5), s + 4, step_s)
-    return launched, step_s
 
 
 def _projection_dtypes(bpm, run):
@@ -404,7 +519,7 @@ def _projection_dtypes(bpm, run):
     return calls, casts[0]
 
 
-def profile_decode(run, calls, step_s):
+def profile_decode(run, calls, step_s, tag="4 profile"):
     """Where a decode call's time goes: device time per call (kernels and
     copies, from torch.profiler) against the unprofiled wall time per
     call, and the largest device and host entries."""
@@ -417,23 +532,23 @@ def profile_decode(run, calls, step_s):
     on_dev = [e for e in avg if str(e.device_type).endswith("CUDA")]
     dev_us = sum(e.self_device_time_total for e in on_dev) / calls
     if dev_us == 0:
-        print("[4 profile] the profiler recorded no device time: the "
+        print(f"[{tag}] the profiler recorded no device time: the "
               "device's busy share is not measured")
         return
-    print(f"[4 profile] device busy {dev_us / 1e3:.3f} ms per decode call "
+    print(f"[{tag}] device busy {dev_us / 1e3:.3f} ms per decode call "
           f"of {1e3 * step_s:.2f} ms wall unprofiled "
           f"({100 * dev_us / (1e6 * step_s):.1f}% busy)")
     cast = [e for e in on_dev if "copy_kernel" in e.key]
-    print(f"[4 profile] casts on the device: "
+    print(f"[{tag}] casts on the device: "
           f"{sum(e.count for e in cast) / calls:.1f} launches and "
           f"{sum(e.self_device_time_total for e in cast) / calls:.1f} us per "
           f"decode call")
     for e in sorted(on_dev, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"[4 profile]   device {e.self_device_time_total / calls:8.1f}"
+        print(f"[{tag}]   device {e.self_device_time_total / calls:8.1f}"
               f" us/call  {e.count // calls:4d}x  {e.key[:70]}")
     on_host = [e for e in avg if not str(e.device_type).endswith("CUDA")]
     for e in sorted(on_host, key=lambda e: -e.self_cpu_time_total)[:6]:
-        print(f"[4 profile]   host {e.self_cpu_time_total / calls:8.1f}"
+        print(f"[{tag}]   host {e.self_cpu_time_total / calls:8.1f}"
               f" us/call  {e.count // calls:4d}x  {e.key[:70]}")
 
 
@@ -856,7 +971,7 @@ def phase_grid_serve(cs, configs, lm, engine, comefa_exec, comefa_sim,
           f"{waves * cfg.n_layers * chunks}; grid_cycles "
           f"{grid_ex.grid_cycles} = {grid_ex.grid_cycles / (waves * cfg.n_layers):.0f}"
           f" per layer-wave (quote {quote})")
-    if probe.calls != 7 * cfg.n_layers * stats["steps"]:
+    if probe.calls != lm.packed_projections(model) * stats["steps"]:
         fail(f"{probe.calls} hooked calls")
     if launched == 0 or launched != dispatched or \
             launched != waves * cfg.n_layers * chunks:
@@ -1706,6 +1821,214 @@ def phase_eval_layer(cs, comefa_sim, metrics, dev):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the recurrent and sliding-window families on the card
+# ---------------------------------------------------------------------------
+
+# every distinct packed projection (K, N) of each config
+FAMILY_SHAPES = {
+    "recurrentgemma-2b": ((2560, 2560), (2560, 256), (2560, 7680),
+                          (7680, 2560)),
+    "xlstm-1.3b": ((2048, 2048), (2048, 8192)),
+    "gemma2-27b": ((4608, 4096), (4608, 2048), (4096, 4608), (4608, 36864),
+                   (36864, 4608)),
+    "gemma3-27b": ((5376, 4096), (5376, 2048), (4096, 5376), (5376, 21504),
+                   (21504, 5376)),
+    "starcoder2-7b": ((4608, 4608), (4608, 512), (4608, 18432),
+                      (18432, 4608)),
+}
+# the big three run at full width and one pattern period deep (two layers
+# for StarCoder2's one-layer pattern): one period runs every layer kind and
+# every projection shape, and full depth (46, 62 and 32 layers) would
+# multiply their share of the run's time (decode calls, and the hold of
+# every projection, which unpacks each weight) for no new shape
+PERIOD_DEPTH = {"gemma2-27b": 2, "gemma3-27b": 6, "starcoder2-7b": 2}
+
+
+def phase_family_shapes(bpm, bitplane, dev, smi):
+    """(a) the bit-plane kernel at every new projection shape: held to its
+    plain version at M = 4 in bf16 and M = 32 in f32 with phase 2's
+    tolerances, then timed at M = 4 in bf16 (CUDA graph and events, the
+    weights cycled out of L2) beside its byte bound and bf16 torch.matmul
+    on the dequantised bf16 weight."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    bf = torch.bfloat16
+    shapes = sorted({kn for v in FAMILY_SHAPES.values() for kn in v})
+    worst, total = 0.0, {"kernel": 0.0, "bound": 0.0, "lib": 0.0}
+    for k, n in shapes:
+        held = []
+        for m, xd in ((M_DECODE, bf), (M_PREFILL, torch.float32)):
+            exact, rounded, ratio, err = _kernel_check(
+                bpm, bitplane, gen, dev, m, k, n, BITS, (xd,))
+            worst = max(worst, err)
+            held.append(f"M={m} {str(xd)[6:]} x: integer exact={exact}, "
+                        f"|d|/bound={ratio:.3f}, bf16 y rounded={rounded}")
+            if not (exact and rounded and ratio <= 1):
+                fail(f"kernel disagrees with plain at M={m} K={k} N={n}")
+        x, q, scale = _operands(gen, dev, BITS, M_DECODE, k, n,
+                                integer=False)
+        xb = x.to(bf)
+        planes = bitplane.pack(q, BITS)
+        wb = bitplane.dequantize(q, scale).to(bf)
+        pc = [planes.clone() for _ in range(_copies(planes.numel() * 4))]
+        wbc = [wb.clone() for _ in range(_copies(wb.numel() * 2))]
+        t_k = _time_ms(lambda i: bpm.bitplane_matmul(
+            xb, pc[i % len(pc)], scale, bits=BITS, out_dtype=bf), len(pc))
+        t_lib = _time_ms(lambda i: torch.matmul(xb, wbc[i % len(wbc)]),
+                         len(wbc))
+        nbytes = BITS / 8 * k * n + 2 * M_DECODE * (k + n) + 4 * n
+        t_bound = max(1e3 * nbytes / HBM_BYTES_PER_S,
+                      1e3 * 2 * M_DECODE * k * n / BF16_FLOP_PER_S)
+        total["kernel"] += t_k
+        total["bound"] += t_bound
+        total["lib"] += t_lib
+        geo = bpm.geometry(M_DECODE, k, n, _sms())
+        print(f"[15a kernel] K={k} N={n}: " + "; ".join(held))
+        print(f"[15a time] K={k} N={n} M={M_DECODE} bf16 x and y "
+              f"({geo['splits']} splits, {geo['ctas']} CTAs): kernel "
+              f"{t_k * 1e3:.2f} us, byte bound {t_bound * 1e3:.2f} us "
+              f"({100 * t_bound / t_k:.0f}% of it), torch.matmul bf16 "
+              f"{t_lib * 1e3:.2f} us ({t_lib / t_k:.2f}x the kernel's time);"
+              f" {smi}")
+        del pc, wbc, wb
+    print(f"[15a time] {len(shapes)} shapes, one call each at M={M_DECODE}: "
+          f"kernel {total['kernel'] * 1e3:.1f} us, byte bound "
+          f"{total['bound'] * 1e3:.1f} us, torch.matmul bf16 "
+          f"{total['lib'] * 1e3:.1f} us; {smi}")
+    return worst
+
+
+def _packed_shapes(common, model):
+    return {(m.packed.shape[1] * 32, m.packed.shape[2])
+            for m in model.modules()
+            if isinstance(m, common.PackedLinear) and m.packed is not None}
+
+
+def phase_family(bpm, bitplane, configs, common, lm, engine, dev, name,
+                 tag):
+    """(b)-(d) one config at full width on the card, 8-bit planes, bf16:
+    the counted main path (generate, and serve_continuous at full depth)
+    with launches equal to the packed projections times the decode-path
+    calls; one decode step with the kernel against the plain version
+    (logits within 5% of the largest; xLSTM's in f32 activations); every
+    projection of a decode step held to the plain version on the same
+    activations; no cast around any packed projection; and at full depth
+    the device's busy share of a decode call."""
+    full = configs.get(name)
+    over = {"n_layers": PERIOD_DEPTH[name]} if name in PERIOD_DEPTH else {}
+    cfg = configs.get(name, quant_bits=BITS, **over)
+    t0 = time.perf_counter()
+    model = lm.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in model.state_dict().values())
+    per_call = lm.packed_projections(model)
+    if not _packed_shapes(common, model) <= set(FAMILY_SHAPES[name]):
+        fail(f"{name}: packed shapes {sorted(_packed_shapes(common, model))}"
+             f" outside phase 15a's list")
+    kinds = {}
+    for k in cfg.layer_kinds():
+        kinds[k[0]] = kinds.get(k[0], 0) + 1
+    depth = f"{cfg.n_layers} layers (" + ", ".join(
+        f"{v} {k}" for k, v in kinds.items()) + ")"
+    cut = "" if not over else (
+        f", cut from {full.n_layers}: one pattern period runs every layer "
+        f"kind and projection shape, and full depth would multiply this "
+        f"config's init and run time for no new shape")
+    print(f"[{tag}] {cfg.name}: {depth}{cut}; d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.kv_heads} heads of {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}, "
+          f"{cfg.dtype}, {BITS}-bit planes, "
+          f"{'tied' if cfg.tie_embeddings else 'untied'} head; "
+          f"{n_params} stored values, init {init_s:.1f} s; {per_call} "
+          f"packed projections a decode call")
+    b, s, steps = M_DECODE, 8, 4 if over else 24
+    prompt, out, gen_s, reqs, outs, stats, serve_s, launched = _counted_run(
+        bpm, engine, model, dev, b, s, steps, serve=not over)
+    calls = (s + steps) + stats["steps"]
+    expect = per_call * calls
+    print(f"[{tag}] generate: {b}x{s} prompt, {steps} steps in "
+          f"{gen_s:.3f} s = {b * steps / gen_s:.1f} tokens/s, "
+          f"{1e3 * gen_s / (s + steps):.2f} ms per decode step")
+    if reqs:
+        emitted = sum(len(o) for o in outs)
+        print(f"[{tag}] serve_continuous: {len(reqs)} requests, {emitted} "
+              f"tokens in {serve_s:.3f} s = {emitted / serve_s:.1f} "
+              f"tokens/s, {stats['steps']} batched steps, occupancy "
+              f"{stats['occupancy']:.3f}")
+    print(f"[{tag}] bit-plane kernel launches: {launched} (expected "
+          f"{per_call} x {calls} decode-path calls = {expect})")
+    if launched != expect or launched == 0:
+        fail(f"{name}: the main path did not run every projection through "
+             f"the kernel")
+    _check_tokens(cfg, out, b, steps, reqs, outs)
+    nxt = out[:, :1].long()
+    # xLSTM's exponential gates and normalizer carry a one-ulp bf16 flip of
+    # a projection to a large share of the logits (both packages' bf16
+    # logits sit far from their f32 logits), so its bf16 logits are shown
+    # and the step is held in f32 activations instead, with the same
+    # packed weights
+    amplifies = cfg.name == "xlstm-1.3b"
+    _decode_vs_plain(bpm, common, lm, model, prompt, nxt, tag,
+                     f"{cfg.n_layers} layers", held=not amplifies)
+    if amplifies:
+        m32 = copy.deepcopy(model).to(torch.float32)
+        m32.cfg = dataclasses.replace(cfg, dtype="float32")
+        _decode_vs_plain(bpm, common, lm, m32, prompt, nxt, tag,
+                         f"{cfg.n_layers} layers")
+        del m32
+    _hold_projections(bpm, bitplane, common, lm, model, prompt, nxt, tag)
+    _check_casts(bpm, lm, model, prompt, nxt, tag)
+    _decode_memory(lm, model, prompt, nxt, tag)
+    step_s = gen_s / (s + steps)
+    if not over:
+        profile_decode(lambda: engine.generate(model, prompt, steps=4,
+                                               max_len=s + 5), s + 4, step_s,
+                       tag)
+    del model
+    torch.cuda.empty_cache()
+    return launched, step_s
+
+
+def _decode_memory(lm, model, prompt, nxt, tag):
+    """Device memory of the params, and the most one decode call
+    allocates above them and its states (the logits' temporaries: with a
+    tied embedding, its f32 copy, as the JAX code takes it)."""
+    cfg = model.cfg
+    params = sum(t.numel() * t.element_size()
+                 for t in model.state_dict().values())
+    states, saved = _primed(lm, model, prompt)
+    del saved
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lm.decode_step(model, nxt, states, prompt.shape[1])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    emb = (f"the f32 copy of the tied embedding is "
+           f"{4 * cfg.vocab * cfg.d_model / 1e9:.3f} GB of it"
+           if cfg.tie_embeddings else "the head is untied: no f32 copy")
+    print(f"[{tag}] device memory: params {params / 1e9:.3f} GB; one "
+          f"decode call (batch {prompt.shape[0]}) allocates up to "
+          f"{peak / 1e9:.3f} GB above the params and states; {emb}")
+
+
+def phase_families(bpm, bitplane, configs, common, lm, engine, dev, smi):
+    t0 = time.perf_counter()
+    worst = phase_family_shapes(bpm, bitplane, dev, smi)
+    launched = {}
+    for name, tag in (("recurrentgemma-2b", "15b"), ("xlstm-1.3b", "15c"),
+                      ("gemma2-27b", "15d"), ("gemma3-27b", "15d"),
+                      ("starcoder2-7b", "15d")):
+        launched[name], step_s = phase_family(
+            bpm, bitplane, configs, common, lm, engine, dev, name, tag)
+        print(f"[{tag}] {name}: {1e3 * step_s:.2f} ms per decode step "
+              f"(batch {M_DECODE}); {smi}")
+    print(f"[15 families] bit-plane kernel launches on the main paths: "
+          f"{launched}; phase 15 took {time.perf_counter() - t0:.1f} s")
+    return sum(launched.values()), worst
+
+
 def main():
     sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
@@ -1765,11 +2088,16 @@ def main():
     eval_launched = phase_eval_layer(cs, comefa_sim, metrics, dev)
     print(f"[14 eval] step kernel launches: phase 8 {step_launched}, "
           f"phase 14 {eval_launched}")
+    family_launched, family_err = phase_families(
+        bpm, bitplane, configs, common, lm, engine, dev, smi)
+    print(f"[15 families] bit-plane kernel launches: phase 4 {launched}, "
+          f"phase 15 {family_launched}")
     record = {"kernels": [
         {"name": "bitplane_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
          "replaces": "src/repro/kernels/bitplane_matmul.py:69",
-         "launches": launched, "max_abs_err": worst, **layer},
+         "launches": launched + family_launched,
+         "max_abs_err": max(worst, family_err), **layer},
         {"name": "comefa_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/comefa_step.cu",
          "replaces": "src/repro/kernels/comefa_step.py:80",

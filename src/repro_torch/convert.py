@@ -4,8 +4,11 @@ The input is the JAX param tree with every leaf a numpy array (for
 example ``jax.tree.map(np.asarray, params)``); nothing here imports JAX.
 Both of the JAX stack layouts are read: ``stack.groups.l<i>.*`` with a
 leading layer axis (``scan_layers=True``) and ``stack.group_list[g]``
-(``scan_layers=False``), each followed by the ``stack.rem`` layers.
-Packed ``uint32`` planes become ``int32`` with the same bits.
+(``scan_layers=False``), each followed by the ``stack.rem`` layers.  A
+layer's leaves keep their JAX names whatever its kind (``mix.wf.w``,
+``mix.lam``, ``mix.qn.g``, and no ``n2``/``ffn`` where its ffn is
+``none``), and an untied ``head`` comes across too.  Packed ``uint32``
+planes become ``int32`` with the same bits.
 """
 from __future__ import annotations
 
@@ -55,6 +58,8 @@ def _layers(stack: Dict) -> List[Dict[str, np.ndarray]]:
 def state_dict(params: Dict) -> Dict[str, torch.Tensor]:
     """JAX param tree (numpy leaves) -> the port's `lm.LM` state dict."""
     flat = {**_flat(params["embed"], "embed"), **_flat(params["nf"], "nf")}
+    if "head" in params:                       # untied output projection
+        flat.update(_flat(params["head"], "head"))
     for j, layer in enumerate(_layers(params["stack"])):
         flat.update({f"stack.{j}{k}": v for k, v in layer.items()})
     return {k: _tensor(v) for k, v in flat.items()}

@@ -3,7 +3,9 @@ DOC = """Serving launcher: batched generation on one device.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --quant 8 [--reduced] [--device cuda]
 
---quant w stores every projection as w-bit packed bit-planes (the CoMeFa
+--arch is one of smollm-360m, starcoder2-7b, gemma2-27b, gemma3-27b,
+recurrentgemma-2b and xlstm-1.3b; --reduced runs a tiny config of the
+same family.  --quant w stores every projection as w-bit packed bit-planes (the CoMeFa
 path) and runs it through the bit-plane CUDA kernel: at decode the weight
 stream out of device memory shrinks 16/w x against bf16.  Params are
 random, from a seeded generator.  --device defaults to cuda and raises
@@ -31,6 +33,9 @@ def main(argv=None):
     from repro_torch.models import common, lm
     from repro_torch.serve import engine
 
+    if args.arch not in configs.REGISTRY:
+        ap.error(f"--arch {args.arch!r}: the port runs "
+                 f"{', '.join(configs.ARCHS)}")
     cfg = configs.get(args.arch, quant_bits=args.quant)
     if args.reduced:
         cfg = common.reduced(cfg, vocab=512, d_model=128, d_ff=256,

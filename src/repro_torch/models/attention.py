@@ -1,6 +1,7 @@
-"""Attention: GQA with RoPE and softcap, full-sequence (dense) and
+"""Attention: GQA/MQA with RoPE, sliding window, qk-norm and softcap,
+full-sequence (dense below `DENSE_MAX_SEQ`, query-chunked above it) and
 single-token decode against a KV cache.  The port of
-`repro.models.attention` for the ``global`` mixer."""
+`repro.models.attention` for the ``global`` and ``local`` mixers."""
 from __future__ import annotations
 
 import math
@@ -12,11 +13,13 @@ from torch import nn
 from . import common as cm
 from .common import Config
 
-DENSE_MAX_SEQ = 1024       # below this, plain dense attention is used
+DENSE_MAX_SEQ = 1024       # above this, `_attn_chunked` bounds the memory
 
 
 class Attention(nn.Module):
-    """Params of one attention layer (the JAX `attention.init`)."""
+    """Params of one attention layer (the JAX `attention.init`): the four
+    projections, and with ``cfg.qk_norm`` the ``qn``/``kn`` RMSNorms over
+    head_dim."""
 
     def __init__(self, cfg: Config, generator: torch.Generator, dev):
         super().__init__()
@@ -26,6 +29,9 @@ class Attention(nn.Module):
         self.wk = cm._init_dense(generator, d, hkv, cfg, qz, dev)
         self.wv = cm._init_dense(generator, d, hkv, cfg, qz, dev)
         self.wo = cm._init_dense(generator, hq, d, cfg, qz, dev)
+        if cfg.qk_norm:
+            self.qn = cm.RMSNorm(cfg.hd, dev)
+            self.kn = cm.RMSNorm(cfg.hd, dev)
 
 
 def _split_heads(x, n, hd):
@@ -36,6 +42,9 @@ def _qkv(params: Attention, x, cfg: Config, positions):
     q = _split_heads(cm.linear(params.wq, x), cfg.n_heads, cfg.hd)
     k = _split_heads(cm.linear(params.wk, x), cfg.kv_heads, cfg.hd)
     v = _split_heads(cm.linear(params.wv, x), cfg.kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = cm.rmsnorm(params.qn, q, cfg.norm_eps)
+        k = cm.rmsnorm(params.kn, k, cfg.norm_eps)
     q = cm.rope(q, positions, cfg.rope_theta)
     k = cm.rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -68,22 +77,90 @@ def _sdpa(q, k, v, mask, cfg: Config):
     return out.reshape(b, s, hq, d)
 
 
-def causal_mask(s: int, dev) -> torch.Tensor:
+def causal_mask(s: int, dev, window: int = 0,
+                prefix_len: int = 0) -> torch.Tensor:
     i = torch.arange(s, device=dev)[:, None]
     j = torch.arange(s, device=dev)[None, :]
-    return j <= i
+    m = j <= i
+    if window:
+        m = m & (j > i - window)
+    if prefix_len:
+        m = m | (j < prefix_len)                      # bidirectional prefix
+    return m
 
 
-def apply(params: Attention, x: torch.Tensor, cfg: Config) -> torch.Tensor:
-    """Full-sequence causal (``global``) attention, dense branch."""
+def _attn_chunked(q, k, v, cfg: Config, *, kind: str, prefix_len: int = 0):
+    """Query-chunked attention, the JAX function's chunks one after the
+    other: ``global`` (and ``bidir``) queries in chunks of 512 rows, each
+    against every key it may read; ``local`` queries in window-sized
+    chunks, each against its own and the previous window of keys (banded,
+    so the work stays linear in the sequence).  Lengths that do not split
+    into at least two chunks take the dense path, as in the JAX code."""
+    b, s, hq, d = q.shape
+    t = k.shape[1]
+    dev = q.device
+    if kind == "local":
+        w = min(cfg.window, s)
+        cq = w
+        nq = s // cq
+        if nq * cq != s or nq < 2:
+            mask = causal_mask(s, dev, window=cfg.window,
+                               prefix_len=prefix_len)
+            return _sdpa(q, k, v, mask, cfg)
+        # pad keys with one window in front: chunk i reads [iW, iW+2W)
+        kp = torch.nn.functional.pad(k, (0, 0, 0, 0, w, 0))
+        vp = torch.nn.functional.pad(v, (0, 0, 0, 0, w, 0))
+
+        def chunk(i, qi):
+            ks = kp[:, i * cq:i * cq + 2 * w]
+            vs = vp[:, i * cq:i * cq + 2 * w]
+            qpos = i * cq + torch.arange(cq, device=dev)
+            kpos = i * cq - w + torch.arange(2 * w, device=dev)
+            m = ((kpos[None, :] <= qpos[:, None])
+                 & (kpos[None, :] > qpos[:, None] - cfg.window)
+                 & (kpos[None, :] >= 0))
+            return _sdpa(qi, ks, vs, m, cfg)
+    else:
+        cq = min(512, s)
+        nq = s // cq
+        if nq * cq != s or nq < 2:
+            m = None if kind == "bidir" else causal_mask(
+                s, dev, prefix_len=prefix_len)
+            return _sdpa(q, k, v, m, cfg)
+
+        def chunk(i, qi):
+            qpos = i * cq + torch.arange(cq, device=dev)
+            kpos = torch.arange(t, device=dev)
+            if kind == "bidir":
+                m = torch.ones((cq, t), dtype=torch.bool, device=dev)
+            else:
+                m = kpos[None, :] <= qpos[:, None]
+                if prefix_len:
+                    m = m | (kpos[None, :] < prefix_len)
+            return _sdpa(qi, k, v, m, cfg)
+
+    return torch.cat([chunk(i, q[:, i * cq:(i + 1) * cq])
+                      for i in range(nq)], dim=1)
+
+
+def apply(params: Attention, x: torch.Tensor, cfg: Config, *,
+          kind: str = "global", prefix_len: int = 0) -> torch.Tensor:
+    """Full-sequence attention (prefill) of mixer `kind`: ``global``,
+    ``local`` (causal within ``cfg.window``) or ``bidir``."""
     b, s, _ = x.shape
-    if s > DENSE_MAX_SEQ:
-        raise NotImplementedError(
-            f"sequence {s} > {DENSE_MAX_SEQ} needs the chunked attention, "
-            "which is not ported yet")
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(params, x, cfg, positions)
-    out = _sdpa(q, k, v, causal_mask(s, x.device), cfg)
+    if s > DENSE_MAX_SEQ:
+        out = _attn_chunked(q, k, v, cfg, kind=kind, prefix_len=prefix_len)
+    else:
+        if kind == "bidir":
+            mask = None
+        elif kind == "local":
+            mask = causal_mask(s, x.device, window=cfg.window,
+                               prefix_len=prefix_len)
+        else:
+            mask = causal_mask(s, x.device, prefix_len=prefix_len)
+        out = _sdpa(q, k, v, mask, cfg)
     return cm.linear(params.wo, out.reshape(b, s, -1))
 
 
@@ -92,10 +169,13 @@ def apply(params: Attention, x: torch.Tensor, cfg: Config) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: Config, batch: int, max_len: int, dev,
-               dtype=None) -> Dict[str, torch.Tensor]:
-    """KV cache for one global attention layer, layout [B, T, H_kv, D]."""
+               kind: str = "global", dtype=None) -> Dict[str, torch.Tensor]:
+    """KV cache for one attention layer, layout [B, T, H_kv, D]: a local
+    layer keeps a ring of min(window, max_len) rows, a global one
+    max_len."""
     dtype = dtype or cfg.adtype
-    shape = (batch, max_len, cfg.kv_heads, cfg.hd)
+    t = min(cfg.window, max_len) if kind == "local" else max_len
+    shape = (batch, t, cfg.kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
@@ -109,24 +189,28 @@ def positions(index, batch: int, dev) -> torch.Tensor:
 
 
 def decode_step(params: Attention, x: torch.Tensor,
-                cache: Dict[str, torch.Tensor], index, cfg: Config
+                cache: Dict[str, torch.Tensor], index, cfg: Config, *,
+                kind: str = "global"
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode: x [B, 1, D], cache k/v [B, T, Hkv, D].
 
     `index` is the absolute position of the new token - a scalar (whole
     batch in lockstep) or a [B] vector (continuous batching: each row at
-    its own position).  Row i writes its own cache slot and attends over
-    the slots up to its own index.  Unlike the JAX function, the cache is
-    updated in place (and returned), which saves a copy per step.
+    its own position).  Row i writes its own cache slot (``index % T`` in
+    a local layer's ring) and attends over the slots up to its own index,
+    so every slot of a ring is valid once it has wrapped.  Unlike the JAX
+    function, the cache is updated in place (and returned), which saves a
+    copy per step.
     """
     b = x.shape[0]
     t = cache["k"].shape[1]
     idx = positions(index, b, x.device)
     q, k_new, v_new = _qkv(params, x, cfg, idx[:, None])
+    slot = idx % t if kind == "local" else idx
     rows = torch.arange(b, device=x.device)
     k, v = cache["k"], cache["v"]
-    k[rows, idx] = k_new[:, 0].to(k.dtype)
-    v[rows, idx] = v_new[:, 0].to(v.dtype)
+    k[rows, slot] = k_new[:, 0].to(k.dtype)
+    v[rows, slot] = v_new[:, 0].to(v.dtype)
     valid = torch.arange(t, device=x.device)[None, None, :] <= \
         idx[:, None, None]
     out = _sdpa(q, k, v, valid, cfg)

@@ -127,7 +127,10 @@ def _request_generator(seed: int, rid: int, n: int,
 def _reset_state_slot(states, fresh, slot: int) -> None:
     """Restore batch row `slot` of every decode-state tensor, in place,
     from row 0 of `fresh` (a batch-1 fresh init).  Every state tensor of
-    the port keeps its batch on axis 0."""
+    the port keeps its batch on axis 0.  KV caches would clean themselves
+    through the validity mask, but recurrent states carry forward (and
+    some start away from zero: mLSTM's m at -1e30, sLSTM's at -10), so
+    every kind is restored alike."""
     for layer, init in zip(states, fresh):
         for name, t in layer.items():
             t[slot].copy_(init[name][0])

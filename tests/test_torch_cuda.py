@@ -1,6 +1,8 @@
 """The port on a CUDA GPU: the bit-plane kernel against its plain version
-(both paths, both dtypes, the split-K cluster), a reduced model on the
-card against the CPU, the CoMeFa step kernel against its plain version
+(both paths, both dtypes, the split-K cluster, every projection shape of
+the recurrent and sliding-window families), reduced SmolLM,
+RecurrentGemma and xLSTM on the card against the CPU, the CoMeFa step
+kernel against its plain version
 and the uint8 reference engine (its warp segments at nb 1-17, chained
 slots on clusters up to 624 blocks, 65,536 slots, its decoded-program
 cache), the six array kernels of `comefa_sim` (GEMMs on 79- and
@@ -171,15 +173,56 @@ def test_kernel_rejects_bad_operands(cuda):
                             scale, bits=4)
 
 
-def test_reduced_model_on_card_matches_cpu(cuda):
-    cfg = cm.reduced(configs.get("smollm-360m"), n_layers=2, quant_bits=8)
+# every distinct packed projection (K, N) of RecurrentGemma-2B, xLSTM-1.3B,
+# Gemma-2-27B, Gemma-3-27B and StarCoder2-7B
+FAMILY_SHAPES = [
+    (2560, 2560), (2560, 256), (2560, 7680), (7680, 2560),
+    (2048, 2048), (2048, 8192),
+    (4608, 4096), (4608, 2048), (4096, 4608), (4608, 36864), (36864, 4608),
+    (5376, 4096), (5376, 2048), (4096, 5376), (5376, 21504), (21504, 5376),
+    (4608, 4608), (4608, 512), (4608, 18432), (18432, 4608)]
+
+
+@pytest.mark.parametrize("m,xd", [(4, torch.bfloat16), (32, torch.float32)])
+@pytest.mark.parametrize("k,n", FAMILY_SHAPES)
+def test_kernel_at_family_shapes(cuda, k, n, m, xd):
+    """The new families' projection shapes as `linear` calls them at
+    decode (M = 4, bf16) and prefill (M = 32, f32): exact on integers,
+    within the f32 bound on floats, a bf16 y the f32 y rounded once."""
+    for integer in (True, False):
+        x, planes, scale, q = _operands(k + n + m, 8, m, k, n, cuda,
+                                        integer=integer)
+        xx = x.to(xd)
+        got = bpm.bitplane_matmul(xx, planes, scale, bits=8)
+        want = bpm.bitplane_matmul_plain(xx, planes, scale, bits=8)
+        yb = bpm.bitplane_matmul(xx, planes, scale, bits=8,
+                                 out_dtype=torch.bfloat16)
+        assert torch.equal(yb, got.to(torch.bfloat16))
+        if integer:
+            assert torch.equal(got, want)
+            continue
+        bound = (k + 2) * 2.0 ** -23 * (
+            xx.abs().double() @ (torch.as_tensor(q, device=cuda).abs()
+                                 .double() * scale.double()))
+        assert bool(((got - want).abs().double() <= bound).all())
+
+
+@pytest.mark.parametrize("name", ["smollm-360m", "recurrentgemma-2b",
+                                  "xlstm-1.3b"])
+def test_reduced_model_on_card_matches_cpu(cuda, name):
+    """A reduced model of each family (f32, 8-bit planes) on the card
+    against the CPU's plain path: equal greedy tokens, one kernel launch a
+    packed projection a call, forward logits within 1e-4."""
+    cfg = cm.reduced(configs.get(name), quant_bits=8,
+                     n_layers=max(2, len(configs.get(name).pattern)))
     cpu_model = lm.init(torch.Generator().manual_seed(0), cfg, "cpu")
     gpu_model = copy.deepcopy(cpu_model).to(cuda)
     prompt = torch.as_tensor(
         np.random.default_rng(1).integers(0, cfg.vocab, (3, 5)))
     before = bpm.launches
     got = engine.generate(gpu_model, prompt.to(cuda), steps=4, max_len=10)
-    assert bpm.launches - before == 7 * cfg.n_layers * (5 + 4)
+    assert bpm.launches - before == \
+        lm.packed_projections(gpu_model) * (5 + 4)
     want = engine.generate(cpu_model, prompt, steps=4, max_len=10)
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
     logits = lm.forward(gpu_model, prompt.to(cuda)).cpu()
