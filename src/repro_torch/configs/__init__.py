@@ -1,17 +1,18 @@
-"""Architecture registry of the port: the configs whose families it runs.
+"""Architecture registry of the port: the JAX package's ten configs.
 
-``get("smollm-360m", quant_bits=8)`` returns the CoMeFa bit-plane
-quantized variant (weight-only, packed planes).  The JAX package's other
-configs (MoE, encoder-decoder, prefix-LM) join as their families are
-ported.
+``get("mixtral-8x7b")`` returns the exact published config;
+``get("mixtral-8x7b", quant_bits=8)`` returns the CoMeFa bit-plane
+quantized variant (weight-only, packed planes).
 """
 import dataclasses
 
-from . import (gemma2_27b, gemma3_27b, recurrentgemma_2b, smollm_360m,
-               starcoder2_7b, xlstm_1_3b)
+from . import (arctic_480b, gemma2_27b, gemma3_27b, mixtral_8x7b,
+               paligemma_3b, recurrentgemma_2b, smollm_360m, starcoder2_7b,
+               whisper_small, xlstm_1_3b)
 
-_MODULES = (xlstm_1_3b, smollm_360m, gemma2_27b, gemma3_27b, starcoder2_7b,
-            recurrentgemma_2b)
+_MODULES = (xlstm_1_3b, mixtral_8x7b, arctic_480b, smollm_360m, gemma2_27b,
+            gemma3_27b, starcoder2_7b, recurrentgemma_2b, whisper_small,
+            paligemma_3b)
 REGISTRY = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 ARCHS = tuple(REGISTRY)
 

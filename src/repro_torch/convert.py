@@ -4,11 +4,14 @@ The input is the JAX param tree with every leaf a numpy array (for
 example ``jax.tree.map(np.asarray, params)``); nothing here imports JAX.
 Both of the JAX stack layouts are read: ``stack.groups.l<i>.*`` with a
 leading layer axis (``scan_layers=True``) and ``stack.group_list[g]``
-(``scan_layers=False``), each followed by the ``stack.rem`` layers.  A
-layer's leaves keep their JAX names whatever its kind (``mix.wf.w``,
-``mix.lam``, ``mix.qn.g``, and no ``n2``/``ffn`` where its ffn is
-``none``), and an untied ``head`` comes across too.  Packed ``uint32``
-planes become ``int32`` with the same bits.
+(``scan_layers=False``), each followed by the ``stack.rem`` layers, and
+an encoder-decoder's ``enc_stack`` alike, with ``enc_nf``.  A layer's
+leaves keep their JAX names whatever its kind (``mix.wf.w``,
+``mix.lam``, ``mix.qn.g``, ``cross.wq.packed``, ``nc.g``, an MoE's
+``ffn.router.w`` and its 3-D ``ffn.wi``/``ffn.wg``/``ffn.wo``,
+``ffn_dense.*``, and no ``n2``/``ffn`` where its ffn is ``none``), and
+an untied ``head`` comes across too.  Packed ``uint32`` planes become
+``int32`` with the same bits.
 """
 from __future__ import annotations
 
@@ -60,8 +63,11 @@ def state_dict(params: Dict) -> Dict[str, torch.Tensor]:
     flat = {**_flat(params["embed"], "embed"), **_flat(params["nf"], "nf")}
     if "head" in params:                       # untied output projection
         flat.update(_flat(params["head"], "head"))
-    for j, layer in enumerate(_layers(params["stack"])):
-        flat.update({f"stack.{j}{k}": v for k, v in layer.items()})
+    if "enc_nf" in params:                     # encoder-decoder
+        flat.update(_flat(params["enc_nf"], "enc_nf"))
+    for stack in ("stack", "enc_stack"):
+        for j, layer in enumerate(_layers(params.get(stack, {}))):
+            flat.update({f"{stack}.{j}{k}": v for k, v in layer.items()})
     return {k: _tensor(v) for k, v in flat.items()}
 
 

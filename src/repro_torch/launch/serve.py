@@ -3,10 +3,14 @@ DOC = """Serving launcher: batched generation on one device.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
       --quant 8 [--reduced] [--device cuda]
 
---arch is one of smollm-360m, starcoder2-7b, gemma2-27b, gemma3-27b,
-recurrentgemma-2b and xlstm-1.3b; --reduced runs a tiny config of the
-same family.  --quant w stores every projection as w-bit packed bit-planes (the CoMeFa
-path) and runs it through the bit-plane CUDA kernel: at decode the weight
+--arch is one of the ten configs of `repro_torch.configs` (xlstm-1.3b,
+mixtral-8x7b, arctic-480b, smollm-360m, gemma2-27b, gemma3-27b,
+starcoder2-7b, recurrentgemma-2b, whisper-small, paligemma-3b); --reduced
+runs a tiny config of the same family.  An encoder-decoder
+(whisper-small) encodes seeded random frame embeddings [batch,
+frontend_len, d_model], standing in for its audio frontend.  --quant w
+stores every projection as w-bit packed bit-planes (the CoMeFa path)
+and runs it through the bit-plane CUDA kernel: at decode the weight
 stream out of device memory shrinks 16/w x against bf16.  Params are
 random, from a seeded generator.  --device defaults to cuda and raises
 where there is no GPU; --device cpu runs the plain PyTorch versions.
@@ -46,10 +50,16 @@ def main(argv=None):
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=torch.Generator(device=dev).manual_seed(1),
                            device=dev)
+    enc = None
+    if cfg.family == "encdec":
+        enc = torch.randn((args.batch, cfg.frontend_len, cfg.d_model),
+                          generator=torch.Generator(device=dev).manual_seed(3),
+                          device=dev, dtype=torch.float32)
     out = engine.generate(params, prompt, steps=args.steps,
                           max_len=args.prompt_len + args.steps + 1,
                           temperature=args.temperature,
-                          generator=torch.Generator(device=dev).manual_seed(2))
+                          generator=torch.Generator(device=dev).manual_seed(2),
+                          enc_inputs=enc)
     print("generated token ids:")
     for row in out.tolist():
         print(" ", row)

@@ -1,7 +1,9 @@
 """Attention: GQA/MQA with RoPE, sliding window, qk-norm and softcap,
 full-sequence (dense below `DENSE_MAX_SEQ`, query-chunked above it) and
-single-token decode against a KV cache.  The port of
-`repro.models.attention` for the ``global`` and ``local`` mixers."""
+single-token decode against a KV cache, and cross-attention over an
+encoder's output.  The port of `repro.models.attention` for the
+``global``, ``local`` and ``bidir`` mixers and the ``cross_global``
+layer's cross-attention."""
 from __future__ import annotations
 
 import math
@@ -161,6 +163,20 @@ def apply(params: Attention, x: torch.Tensor, cfg: Config, *,
         else:
             mask = causal_mask(s, x.device, prefix_len=prefix_len)
         out = _sdpa(q, k, v, mask, cfg)
+    return cm.linear(params.wo, out.reshape(b, s, -1))
+
+
+def apply_cross(params: Attention, x: torch.Tensor, ctx: torch.Tensor,
+                cfg: Config) -> torch.Tensor:
+    """Cross-attention: decoder queries x [B, S, D] over the encoder's
+    output ctx [B, T, D], every key visible, no RoPE and no qk-norm (as in
+    the JAX function).  K and V are projected from ctx at every call,
+    also in decode: there is no cross KV cache."""
+    b, s, _ = x.shape
+    q = _split_heads(cm.linear(params.wq, x), cfg.n_heads, cfg.hd)
+    k = _split_heads(cm.linear(params.wk, ctx), cfg.kv_heads, cfg.hd)
+    v = _split_heads(cm.linear(params.wv, ctx), cfg.kv_heads, cfg.hd)
+    out = _sdpa(q, k, v, None, cfg)
     return cm.linear(params.wo, out.reshape(b, s, -1))
 
 

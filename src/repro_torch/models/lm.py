@@ -1,13 +1,17 @@
-"""LM assembly: decoder layers -> a stack -> the full model.
+"""LM assembly: layers -> a stack -> the full model.
 
-The port of `repro.models.lm` for decoder-only families: a layer is a
-(mixer, ffn) pair, the mixer ``global`` or ``local`` attention,
-``mlstm``, ``slstm`` or ``rglru`` and the ffn ``mlp`` or ``none``.  The
-JAX package stacks homogeneous layer groups under `lax.scan`; here the
-stack is a plain `nn.ModuleList` in layer order, layer j of kind
+The port of `repro.models.lm`: a layer is a (mixer, ffn) pair, the mixer
+``global``, ``local`` or ``bidir`` attention, ``cross_global`` (causal
+self-attention, then cross-attention over the encoder's output),
+``mlstm``, ``slstm`` or ``rglru``, and the ffn ``mlp``, ``moe``,
+``moe_dense`` (an MoE plus a dense MLP beside it) or ``none``.  The JAX
+package stacks homogeneous layer groups under `lax.scan`; here a stack
+is a plain `nn.ModuleList` in layer order, layer j of kind
 ``pattern[j % len(pattern)]`` (groups first, then the remainder layers,
 as the JAX stack applies them), and `scan_layers`/`remat` have no
-meaning.
+meaning.  An encoder-decoder (``family == "encdec"``) has a second stack,
+``enc_stack`` of ``cfg.enc_layers`` layers of ``cfg.enc_pattern``, and
+its norm ``enc_nf``.
 
 Decode threads one state dict per layer through the stack (a KV cache
 for attention, the recurrent state otherwise); the states are updated in
@@ -16,7 +20,7 @@ place.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -27,25 +31,10 @@ from . import ffn as ffn_mod
 from . import recurrent as rec
 from .common import Config
 
-MIXERS = ("global", "local", "mlstm", "slstm", "rglru")
-FFNS = ("mlp", "none")
-_ATTENTION = ("global", "local")
+_ATTENTION = ("global", "local", "bidir")
+_CACHED = ("global", "local", "cross_global")     # decode keeps a KV cache
 
 State = List[Dict[str, torch.Tensor]]
-
-
-def _check_supported(cfg: Config) -> None:
-    """Refuse what the port does not run yet: MoE FFNs, cross and
-    bidirectional attention, encoder-decoders, frontends and prefix-LMs."""
-    kinds = sorted({tuple(k) for k in cfg.layer_kinds()})
-    bad = [k for k in kinds if k[0] not in MIXERS or k[1] not in FFNS]
-    if cfg.family != "decoder" or cfg.frontend != "none" or \
-            cfg.prefix_lm or bad:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs decoder-only models whose layers "
-            f"mix with one of {MIXERS} and have an ffn of {FFNS}; got "
-            f"family={cfg.family}, frontend={cfg.frontend}, "
-            f"prefix_lm={cfg.prefix_lm}, layers={kinds}")
 
 
 # ---------------------------------------------------------------------------
@@ -53,37 +42,68 @@ def _check_supported(cfg: Config) -> None:
 # ---------------------------------------------------------------------------
 
 _MIXER_PARAMS = {"global": attn.Attention, "local": attn.Attention,
+                 "bidir": attn.Attention, "cross_global": attn.Attention,
                  "mlstm": rec.MLSTM, "slstm": rec.SLSTM, "rglru": rec.RGLRU}
+FFNS = ("mlp", "moe", "moe_dense", "none")
 
 
 class Layer(nn.Module):
-    """One (mixer, ffn) layer (the JAX `layer_init`); a layer whose ffn is
-    ``none`` has no ``n2`` and no ``ffn``."""
+    """One (mixer, ffn) layer (the JAX `layer_init`): a ``cross_global``
+    layer also has ``cross`` (its cross-attention) and ``nc`` (the norm
+    ahead of it); a layer whose ffn is ``none`` has no ``n2`` and no
+    ``ffn``; ``moe_dense`` has ``ffn`` (the MoE) and ``ffn_dense`` (a
+    packed MLP).  An unknown kind raises ValueError."""
 
     def __init__(self, cfg: Config, generator: torch.Generator, dev,
                  kinds: Tuple[str, str]):
         super().__init__()
         self.kinds = tuple(kinds)
         mixer, f = self.kinds
+        if mixer not in _MIXER_PARAMS:
+            raise ValueError(f"unknown mixer kind {mixer!r}")
+        if f not in FFNS:
+            raise ValueError(f"unknown ffn kind {f!r}")
         self.n1 = cm.RMSNorm(cfg.d_model, dev)
         self.mix = _MIXER_PARAMS[mixer](cfg, generator, dev)
-        if f == "mlp":
+        if mixer == "cross_global":
+            self.cross = attn.Attention(cfg, generator, dev)
+            self.nc = cm.RMSNorm(cfg.d_model, dev)
+        if f != "none":
             self.n2 = cm.RMSNorm(cfg.d_model, dev)
+        if f == "mlp":
             self.ffn = ffn_mod.MLP(cfg, generator, dev)
+        elif f in ("moe", "moe_dense"):
+            self.ffn = ffn_mod.MoE(cfg, generator, dev)
+        if f == "moe_dense":
+            self.ffn_dense = ffn_mod.MLP(cfg, generator, dev)
 
 
 def _ffn_block(p: Layer, x, cfg: Config):
-    if p.kinds[1] == "none":
-        return x
+    """x plus the layer's ffn of norm(x), and the MoE's aux loss (None
+    for a layer without an MoE)."""
+    f = p.kinds[1]
+    if f == "none":
+        return x, None
     h = cm.rmsnorm(p.n2, x, cfg.norm_eps)
-    return x + ffn_mod.mlp_apply(p.ffn, h, cfg)
+    if f == "mlp":
+        return x + ffn_mod.mlp_apply(p.ffn, h, cfg), None
+    y, aux = ffn_mod.moe_apply(p.ffn, h, cfg)
+    if f == "moe_dense":
+        y = y + ffn_mod.mlp_apply(p.ffn_dense, h, cfg)
+    return x + y, aux
 
 
-def layer_apply(p: Layer, x, cfg: Config):
+def layer_apply(p: Layer, x, cfg: Config, *, ctx=None, prefix_len: int = 0):
+    """One layer over a whole sequence: returns (x, aux), aux None where
+    the layer has no MoE."""
     mixer = p.kinds[0]
     h = cm.rmsnorm(p.n1, x, cfg.norm_eps)
     if mixer in _ATTENTION:
-        y = attn.apply(p.mix, h, cfg, kind=mixer)
+        y = attn.apply(p.mix, h, cfg, kind=mixer, prefix_len=prefix_len)
+    elif mixer == "cross_global":
+        x = x + attn.apply(p.mix, h, cfg, kind="global")
+        hc = cm.rmsnorm(p.nc, x, cfg.norm_eps)
+        y = attn.apply_cross(p.cross, hc, ctx, cfg)
     elif mixer == "mlstm":
         y = rec.mlstm_apply(p.mix, h, cfg)
     elif mixer == "slstm":
@@ -96,28 +116,42 @@ def layer_apply(p: Layer, x, cfg: Config):
 def layer_state_init(cfg: Config, batch: int, max_len: int, kinds,
                      dev) -> Dict[str, torch.Tensor]:
     mixer = kinds[0]
-    if mixer in _ATTENTION:
-        return attn.init_cache(cfg, batch, max_len, dev, kind=mixer)
+    if mixer in _CACHED:
+        return attn.init_cache(cfg, batch, max_len, dev,
+                               kind="local" if mixer == "local" else "global")
     if mixer == "mlstm":
         return rec.mlstm_state_init(cfg, batch, dev)
     if mixer == "slstm":
         return rec.slstm_state_init(cfg, batch, dev)
-    return rec.rglru_state_init(cfg, batch, dev)
+    if mixer == "rglru":
+        return rec.rglru_state_init(cfg, batch, dev)
+    raise ValueError(f"no decode state for mixer kind {mixer!r}")
 
 
-def layer_decode(p: Layer, x, state, index, cfg: Config):
+def layer_decode(p: Layer, x, state, index, cfg: Config, *, ctx=None):
+    """One layer, one token: a ``cross_global`` layer attends over its
+    own KV cache, then recomputes cross-attention from `ctx`."""
     mixer = p.kinds[0]
     h = cm.rmsnorm(p.n1, x, cfg.norm_eps)
-    if mixer in _ATTENTION:
+    if mixer in ("global", "local"):
         y, state = attn.decode_step(p.mix, h, state, index, cfg, kind=mixer)
+    elif mixer == "cross_global":
+        y, state = attn.decode_step(p.mix, h, state, index, cfg,
+                                    kind="global")
+        x = x + y
+        hc = cm.rmsnorm(p.nc, x, cfg.norm_eps)
+        y = attn.apply_cross(p.cross, hc, ctx, cfg)
     elif mixer == "mlstm":
         y, state = rec.mlstm_decode(p.mix, h, state, cfg)
     elif mixer == "slstm":
         y, state = rec.slstm_apply(p.mix, h, cfg, state=state,
                                    return_state=True)
-    else:
+    elif mixer == "rglru":
         y, state = rec.rglru_decode(p.mix, h, state, cfg)
-    return _ffn_block(p, x + y, cfg), state
+    else:
+        raise ValueError(f"mixer kind {mixer!r} does not decode")
+    x, _ = _ffn_block(p, x + y, cfg)
+    return x, state
 
 
 # ---------------------------------------------------------------------------
@@ -126,12 +160,12 @@ def layer_decode(p: Layer, x, state, index, cfg: Config):
 
 class LM(nn.Module):
     """Embedding, layer stack, final norm and, where the embeddings are not
-    tied, the output ``head`` (the JAX `lm.init` params); `forward` and
+    tied, the output ``head``; for an encoder-decoder also ``enc_stack``
+    and ``enc_nf`` (the JAX `lm.init` params).  `forward`, `encode` and
     `decode_step` below run it."""
 
     def __init__(self, cfg: Config, generator: torch.Generator, dev):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         self.embed = cm.embed_init(generator, cfg, dev)
         self.stack = nn.ModuleList(
@@ -141,6 +175,11 @@ class LM(nn.Module):
             # never packed (as in the JAX package): a plain product
             self.head = cm._init_dense(generator, cfg.d_model, cfg.vocab,
                                        cfg, False, dev)
+        if cfg.family == "encdec":
+            self.enc_stack = nn.ModuleList(
+                [Layer(cfg, generator, dev, kinds) for kinds in
+                 cfg.layer_kinds(cfg.enc_layers, cfg.enc_pattern)])
+            self.enc_nf = cm.RMSNorm(cfg.d_model, dev)
 
     @property
     def device(self) -> torch.device:
@@ -164,11 +203,16 @@ def _embed_tokens(params: LM, tokens, cfg: Config):
     return (e[tokens] * s).to(cfg.adtype)
 
 
-def packed_projections(params: LM) -> int:
-    """The model's packed projections: the bit-plane kernel launches of
-    one forward or decode call, each projection running once."""
-    return sum(1 for m in params.modules()
-               if isinstance(m, cm.PackedLinear) and m.packed is not None)
+def packed_projections(params: LM, encoder: bool = False) -> int:
+    """The model's packed projections, each one bit-plane kernel launch
+    where a call runs it.  By default those outside the encoder: the
+    launches of one decode call, or of a forward's decoder.  With
+    `encoder`, those of ``enc_stack``: the launches of one `encode`,
+    which `forward` and `serve.engine.generate` run once a call, not at
+    every step (Whisper-small: 132 and 84; 0 without an encoder)."""
+    return sum(1 for name, m in params.named_modules()
+               if isinstance(m, cm.PackedLinear) and m.packed is not None
+               and name.startswith("enc_stack.") == encoder)
 
 
 def _logits(params: LM, x, cfg: Config):
@@ -181,19 +225,52 @@ def _logits(params: LM, x, cfg: Config):
     return cm.softcap(logits, cfg.final_softcap)
 
 
-def forward(params: LM, tokens, *, last_only: bool = False):
-    """Logits [B, S, V] (or [B, 1, V] with `last_only`) for tokens [B, S].
+def encode(params: LM, enc_inputs) -> torch.Tensor:
+    """The encoder pass: frame or patch embeddings [B, T, D] (a tensor or
+    an array) -> the context [B, T, D] on the model's device that
+    cross-attention reads (its aux is dropped, as in the JAX
+    function)."""
+    cfg = params.cfg
+    if enc_inputs is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: it needs "
+                         "enc_inputs")
+    h = torch.as_tensor(enc_inputs, device=params.device).to(cfg.adtype)
+    for layer in params.enc_stack:
+        h, _ = layer_apply(layer, h, cfg)
+    return cm.rmsnorm(params.enc_nf, h, cfg.norm_eps)
 
-    The JAX function also returns the MoE aux loss, which is zero for
-    every family this port runs, so it is left out.
+
+def forward(params: LM, tokens, *, enc_inputs=None, prefix_embeddings=None,
+            last_only: bool = False):
+    """(logits, aux) for tokens [B, S]: logits [B, S, V], or [B, 1, V]
+    with `last_only`; aux the f32 sum of the MoE layers' load-balancing
+    losses (0 without an MoE).
+
+    `enc_inputs` [B, T, D] feed an encoder-decoder's encoder;
+    `prefix_embeddings` [B, P, D] are put ahead of the token embeddings
+    and their positions sliced off the output, and with ``cfg.prefix_lm``
+    attention over them is bidirectional.
     """
     cfg = params.cfg
     x = _embed_tokens(params, tokens, cfg)
+    prefix_len = 0
+    ctx = None
+    if prefix_embeddings is not None:
+        x = torch.cat([prefix_embeddings.to(x.dtype), x], dim=1)
+        prefix_len = prefix_embeddings.shape[1]
+    if cfg.family == "encdec":
+        ctx = encode(params, enc_inputs)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.stack:
-        x = layer_apply(layer, x, cfg)
+        x, a = layer_apply(layer, x, cfg, ctx=ctx,
+                           prefix_len=prefix_len if cfg.prefix_lm else 0)
+        if a is not None:
+            aux = aux + a
+    if prefix_len:
+        x = x[:, prefix_len:]
     if last_only:
         x = x[:, -1:]
-    return _logits(params, x, cfg)
+    return _logits(params, x, cfg), aux
 
 
 def decode_state_init(cfg: Config, batch: int, max_len: int,
@@ -203,15 +280,20 @@ def decode_state_init(cfg: Config, batch: int, max_len: int,
             for kinds in cfg.layer_kinds()]
 
 
-def decode_step(params: LM, token, states: State, index):
+def decode_step(params: LM, token, states: State, index, *,
+                ctx: Optional[torch.Tensor] = None):
     """One decode step: token [B, 1] -> (logits [B, 1, V], states).
 
     `index` is a scalar or a [B] vector of positions; `states` is
-    updated in place and returned.
+    updated in place and returned.  An encoder-decoder takes `ctx`, the
+    output of `encode`.
     """
     cfg = params.cfg
+    if cfg.family == "encdec" and ctx is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: decode_step "
+                         "needs ctx from encode")
     x = _embed_tokens(params, token, cfg)
     index = attn.positions(index, x.shape[0], x.device)
     for layer, state in zip(params.stack, states):
-        x, _ = layer_decode(layer, x, state, index, cfg)
+        x, _ = layer_decode(layer, x, state, index, cfg, ctx=ctx)
     return _logits(params, x, cfg), states

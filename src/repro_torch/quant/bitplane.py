@@ -104,3 +104,32 @@ def quantize_pack(w: torch.Tensor, bits: int, axis: int = 0
     """One-step: float weights -> (packed planes, scale)."""
     q, scale = quantize(w, bits, axis=axis)
     return pack(q, bits, axis=axis), scale
+
+
+# ---------------------------------------------------------------------------
+# HFP8-style custom float emulation (paper Sec. IV-C elementwise benchmark)
+# ---------------------------------------------------------------------------
+
+def quantize_float(x: torch.Tensor, e_bits: int = 4, m_bits: int = 3
+                   ) -> torch.Tensor:
+    """Round to a custom (1, e, m) float format (truncating, no subnormals).
+
+    Matches the semantics of the bit-serial FP programs in
+    `core/comefa/program.py` (FloatPIM-style truncation): the exponent is
+    clipped to the format's normal range and the mantissa truncated to
+    `m_bits`; zeros stay zero.  Every step is the JAX function's, in x's
+    dtype and rounded there: log2 is log(x) / log(2) as `jnp.log2`
+    lowers, so in bf16 the exponent of a value just under a power of two
+    can come out one high, in both packages alike.
+    """
+    bias = 2 ** (e_bits - 1) - 1
+    sign = torch.sign(x)
+    ax = torch.abs(x)
+    ln2 = torch.log(torch.tensor(2.0, dtype=x.dtype, device=x.device))
+    exp = torch.floor(torch.log(torch.where(ax > 0, ax,
+                                            torch.ones_like(ax))) / ln2)
+    exp = torch.clamp(exp, 1 - bias, 2 ** e_bits - 2 - bias)
+    frac = ax / 2.0 ** exp                       # in [1, 2)
+    mant = torch.floor((frac - 1.0) * 2 ** m_bits) / 2 ** m_bits
+    out = sign * (1.0 + mant) * 2.0 ** exp
+    return torch.where(ax == 0, torch.zeros_like(out), out)

@@ -27,22 +27,24 @@ _QUEUE_DEPTH = obs_metrics.gauge("serve.queue_depth")
 _REQUESTS_DONE = obs_metrics.counter("serve.requests_completed")
 
 
-def prefill(params: lm.LM, tokens: torch.Tensor, max_len: int):
+def prefill(params: lm.LM, tokens: torch.Tensor, max_len: int, *,
+            enc_inputs=None):
     """Process the prompt; returns (last-token logits, fresh decode state).
 
     As in the JAX package, the state comes back freshly initialised:
     `generate` primes the caches by replaying the prompt through decode.
+    An encoder-decoder takes `enc_inputs` [B, T, D].
     """
     b, s = tokens.shape
     with obs_trace.span("serve.prefill", batch=b, seq=s,
                         family=params.cfg.family):
-        logits = lm.forward(params, tokens)
+        logits, _ = lm.forward(params, tokens, enc_inputs=enc_inputs)
         states = lm.decode_state_init(params.cfg, b, max_len, params.device)
     return logits[:, -1:], states
 
 
-def decode_step(params: lm.LM, token, states, index):
-    return lm.decode_step(params, token, states, index)
+def decode_step(params: lm.LM, token, states, index, *, ctx=None):
+    return lm.decode_step(params, token, states, index, ctx=ctx)
 
 
 def sample(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -60,12 +62,14 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
 def generate(params: lm.LM, prompt, *, steps: int, max_len: int,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             executor=None) -> torch.Tensor:
+             enc_inputs=None, executor=None) -> torch.Tensor:
     """Greedy/temperature generation; returns tokens [B, steps] int32.
 
-    The prompt is replayed through the decode path to prime the caches,
-    then `steps` tokens are sampled.  ``executor`` is installed as the
-    packed-linear hook for the duration of the call (see
+    An encoder-decoder encodes `enc_inputs` [B, T, D] once, and every
+    step reads that context.  The prompt is replayed through the decode
+    path to prime the caches, then `steps` tokens are sampled.
+    ``executor`` is installed as the packed-linear hook for the duration
+    of the call (see
     `models.common.set_linear_hook`).  `generator` (on the model's
     device) drives sampling at temperature > 0; it defaults to one seeded
     with 0.
@@ -80,6 +84,8 @@ def generate(params: lm.LM, prompt, *, steps: int, max_len: int,
             "logits to sample the first output token from")
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
+    ctx = lm.encode(params, enc_inputs) if params.cfg.family == "encdec" \
+        else None
     prev_hook = cm.set_linear_hook(executor) if executor is not None \
         else None
     try:
@@ -90,14 +96,14 @@ def generate(params: lm.LM, prompt, *, steps: int, max_len: int,
             for t in range(s):
                 with obs_trace.span("serve.prime_token", step=t):
                     logits, states = lm.decode_step(
-                        params, prompt[:, t:t + 1], states, t)
+                        params, prompt[:, t:t + 1], states, t, ctx=ctx)
         out = []
         tok = sample(logits, generator)
         for t in range(steps):
             out.append(tok)
             with obs_trace.span("serve.decode_step", step=t):
                 logits, states = lm.decode_step(params, tok[:, None],
-                                                states, s + t)
+                                                states, s + t, ctx=ctx)
                 tok = sample(logits, generator, temperature)
     finally:
         if executor is not None:
@@ -157,7 +163,16 @@ def serve_continuous(params: lm.LM, requests: List[Request], *,
     Returns the emitted tokens per request, in submission order.  A
     ``stats`` dict receives ``steps`` (batched dispatches),
     ``occupancy`` (mean live-row fraction) and ``slot_steps``.
+
+    An encoder-decoder is refused (NotImplementedError): a request would
+    need its own encoder context, which the JAX function does not pass
+    either.
     """
+    if params.cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{params.cfg.name}: serve_continuous runs decoder-only models;"
+            " an encoder-decoder needs a context per request (use "
+            "generate with enc_inputs)")
     for i, r in enumerate(requests):
         if len(r.prompt) == 0:
             raise ValueError(f"request {i} has an empty prompt")

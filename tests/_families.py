@@ -26,12 +26,17 @@ RTOL, ATOL = 1e-4, 1e-5
 
 # depth of each reduced config: one pattern period, plus the remainder
 # layers where the full config has some (RecurrentGemma's 26 = 8 x 3 + 2,
-# Gemma-3's 62 = 10 x 6 + 2, Gemma-2's 46 = 23 x 2: one extra here)
+# Gemma-3's 62 = 10 x 6 + 2, Gemma-2's 46 = 23 x 2: one extra here); two
+# layers where the pattern is one layer long, so that a layer reads
+# another's output (Whisper: two decoder and, by `reduced`, two encoder
+# layers)
 DEPTH = {"recurrentgemma-2b": 5, "xlstm-1.3b": 8, "gemma2-27b": 3,
-         "gemma3-27b": 8, "starcoder2-7b": 2}
+         "gemma3-27b": 8, "starcoder2-7b": 2, "mixtral-8x7b": 2,
+         "arctic-480b": 2, "whisper-small": 2, "paligemma-3b": 2}
 
 jax_forward = jax.jit(jax_lm.forward, static_argnames=("cfg", "last_only"))
 jax_decode = jax.jit(jax_lm.decode_step, static_argnames=("cfg",))
+jax_encode = jax.jit(jax_lm.encode, static_argnames=("cfg",))
 
 
 def cfgs(name, quant_bits, scan_layers, **over):
@@ -70,21 +75,45 @@ def tokens(shape, vocab, seed=0):
         np.int32)
 
 
-def forward_both(jcfg, params, model, toks):
-    want = np.asarray(jax_forward(params, jnp.asarray(toks), cfg=jcfg)[0])
-    got = lm.forward(model, torch.as_tensor(toks)).numpy()
+def forward_aux_both(jcfg, params, model, toks, **inputs):
+    """((logits, aux) of the port, (logits, aux) of JAX) for tokens and
+    the numpy `inputs` (``enc_inputs``, ``prefix_embeddings``)."""
+    want = jax_forward(params, jnp.asarray(toks), cfg=jcfg,
+                       **{k: jnp.asarray(v) for k, v in inputs.items()})
+    got = lm.forward(model, torch.as_tensor(toks),
+                     **{k: torch.as_tensor(v) for k, v in inputs.items()})
+    return ((got[0].numpy(), float(got[1])),
+            (np.asarray(want[0]), float(want[1])))
+
+
+def forward_both(jcfg, params, model, toks, **inputs):
+    (got, _), (want, _) = forward_aux_both(jcfg, params, model, toks,
+                                           **inputs)
     return got, want
 
 
+def frames(cfg, batch, seed=0):
+    """Seeded encoder inputs [batch, frontend_len, d_model] f32 (the
+    stand-in for an audio or vision frontend's output)."""
+    return np.random.default_rng(seed).normal(
+        size=(batch, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+
+
 def decode_both(jcfg, params, model, toks, max_len, index_of, check,
-                vector=False):
+                vector=False, enc_inputs=None):
     """Decode `toks` [B, T] one column a step through both packages, the
     position of step t being ``index_of(t)``: a [B] vector, or with
     `vector` False a scalar, which the port takes as a Python int.  The
     JAX step always gets the [B] vector (its first act is to broadcast a
-    scalar index to one), so both index kinds share one compile.
-    `check(got, want)` holds each step's logits."""
+    scalar index to one), so both index kinds share one compile.  An
+    encoder-decoder encodes `enc_inputs` once in each package and every
+    step reads its own package's context.  `check(got, want)` holds each
+    step's logits."""
     b = toks.shape[0]
+    jctx = ctx = None
+    if enc_inputs is not None:
+        jctx = jax_encode(params, jnp.asarray(enc_inputs), cfg=jcfg)
+        ctx = lm.encode(model, torch.as_tensor(enc_inputs))
     jstate = jax_lm.decode_state_init(jcfg, b, max_len)
     state = lm.decode_state_init(model.cfg, b, max_len, "cpu")
     for t in range(toks.shape[1]):
@@ -92,10 +121,11 @@ def decode_both(jcfg, params, model, toks, max_len, index_of, check,
         tok = toks[:, t:t + 1]
         jl, jstate = jax_decode(
             params, jnp.asarray(tok), jstate,
-            jnp.broadcast_to(jnp.asarray(idx, jnp.int32), (b,)), cfg=jcfg)
+            jnp.broadcast_to(jnp.asarray(idx, jnp.int32), (b,)), cfg=jcfg,
+            ctx=jctx)
         tl, state = lm.decode_step(
             model, torch.as_tensor(tok),
-            state, torch.as_tensor(idx) if vector else int(idx))
+            state, torch.as_tensor(idx) if vector else int(idx), ctx=ctx)
         check(tl.numpy(), np.asarray(jl))
     return state, jstate
 

@@ -238,3 +238,35 @@ def test_linear_hook_contract():
         assert torch.all(cm.linear(layer, torch.ones((1, 64))) == 0.0)
     finally:
         cm.set_linear_hook(prev)
+
+
+# ---------------------------------------------------------------------------
+# custom float emulation
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e_bits,m_bits", [(4, 3), (5, 2), (3, 4), (2, 1),
+                                           (6, 10)])
+def test_quantize_float_bit_identical_to_jax(e_bits, m_bits, dtype):
+    """Seeded values over many octaves, zeros of both signs, powers of two
+    and their neighbours (where log(x) / log(2) rounds across an
+    integer), and magnitudes far past the format's range (exponents
+    clipped at both ends): the same bits in both packages, in f32 and in
+    bf16."""
+    rng = np.random.default_rng(e_bits * 16 + m_bits)
+    x = rng.normal(size=4000) * np.exp(rng.normal(size=4000) * 3)
+    pw = 2.0 ** np.arange(-20, 20)
+    x = np.concatenate([x, pw, -pw, np.nextafter(pw, 0),
+                        np.nextafter(pw, np.inf), [0.0, -0.0, 1e30, -1e-30]]
+                       ).astype(np.float32)
+    xj = jnp.asarray(x, dtype=dtype)
+    want = np.asarray(jax_bp.quantize_float(xj, e_bits, m_bits)).astype(
+        np.float32)
+    xt = torch.as_tensor(np.asarray(xj).astype(np.float32)).to(
+        getattr(torch, dtype))
+    got = bp.quantize_float(xt, e_bits, m_bits)
+    assert got.dtype == xt.dtype
+    got = got.float().numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert (got[x == 0] == 0).all()
+    assert ((got < 0) == (want < 0)).all()

@@ -1,7 +1,9 @@
 """The port on a CUDA GPU: the bit-plane kernel against its plain version
 (both paths, both dtypes, the split-K cluster, every projection shape of
-the recurrent and sliding-window families), reduced SmolLM,
-RecurrentGemma and xLSTM on the card against the CPU, the CoMeFa step
+the recurrent, sliding-window, MoE, encoder-decoder and prefix-LM
+families, and Whisper's 6,144 cross-attention rows), reduced SmolLM,
+RecurrentGemma, xLSTM, Mixtral, Arctic, Whisper and PaliGemma on the
+card against the CPU, the CoMeFa step
 kernel against its plain version
 and the uint8 reference engine (its warp segments at nb 1-17, chained
 slots on clusters up to 624 blocks, 65,536 slots, its decoded-program
@@ -66,7 +68,7 @@ def _operands(seed, bits, m, k, n, dev, integer=False):
     else:
         x = rng.normal(size=(m, k)).astype(np.float32)
         scale = rng.uniform(0.01, 0.1, size=(1, n)).astype(np.float32)
-    planes = bp.pack(torch.as_tensor(q), bits).to(dev)
+    planes = bp.pack(torch.as_tensor(q, device=dev), bits)
     return (torch.as_tensor(x, device=dev), planes,
             torch.as_tensor(scale, device=dev), q)
 
@@ -174,13 +176,17 @@ def test_kernel_rejects_bad_operands(cuda):
 
 
 # every distinct packed projection (K, N) of RecurrentGemma-2B, xLSTM-1.3B,
-# Gemma-2-27B, Gemma-3-27B and StarCoder2-7B
+# Gemma-2-27B, Gemma-3-27B and StarCoder2-7B, then of the four below
 FAMILY_SHAPES = [
     (2560, 2560), (2560, 256), (2560, 7680), (7680, 2560),
     (2048, 2048), (2048, 8192),
     (4608, 4096), (4608, 2048), (4096, 4608), (4608, 36864), (36864, 4608),
     (5376, 4096), (5376, 2048), (4096, 5376), (5376, 21504), (21504, 5376),
-    (4608, 4608), (4608, 512), (4608, 18432), (18432, 4608)]
+    (4608, 4608), (4608, 512), (4608, 18432), (18432, 4608),
+    # Mixtral-8x7B, Arctic-480B, Whisper-small, PaliGemma-3B
+    (4096, 4096), (4096, 1024), (7168, 7168), (7168, 1024), (7168, 4864),
+    (4864, 7168), (768, 768), (768, 3072), (3072, 768), (2048, 256),
+    (2048, 16384), (16384, 2048)]
 
 
 @pytest.mark.parametrize("m,xd", [(4, torch.bfloat16), (32, torch.float32)])
@@ -207,6 +213,78 @@ def test_kernel_at_family_shapes(cuda, k, n, m, xd):
         assert bool(((got - want).abs().double() <= bound).all())
 
 
+@pytest.mark.parametrize("xd", [torch.bfloat16, torch.float32])
+def test_kernel_at_cross_attention_rows(cuda, xd):
+    """Whisper-small's cross-attention K and V at decode: M = 4 x 1,536
+    encoder frames = 6,144 rows (192 row tiles) of (768, 768), on the
+    tensor-core path: exact on integers, within the f32 bound on floats,
+    a bf16 y the f32 y rounded once."""
+    m, k, n = 6144, 768, 768
+    for integer in (True, False):
+        x, planes, scale, q = _operands(7, 8, m, k, n, cuda, integer=integer)
+        xx = x.to(xd)
+        got = bpm.bitplane_matmul(xx, planes, scale, bits=8)
+        want = bpm.bitplane_matmul_plain(xx, planes, scale, bits=8)
+        yb = bpm.bitplane_matmul(xx, planes, scale, bits=8,
+                                 out_dtype=torch.bfloat16)
+        assert torch.equal(yb, got.to(torch.bfloat16))
+        if integer:
+            assert torch.equal(got, want)
+            continue
+        bound = (k + 2) * 2.0 ** -23 * (
+            xx.abs().double() @ (torch.as_tensor(q, device=cuda).abs()
+                                 .double() * scale.double()))
+        assert bool(((got - want).abs().double() <= bound).all())
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "arctic-480b",
+                                  "whisper-small", "paligemma-3b"])
+def test_new_family_decode_on_card_matches_cpu(cuda, name):
+    """A reduced MoE, encoder-decoder or prefix-LM model (f32, 8-bit
+    planes, 2 layers) on the card against the CPU's plain path: every
+    decode step's logits within 1e-4 (the MoE's routing, Whisper's
+    context and cross-attention included), one kernel launch a packed
+    projection a call (an encode's once), equal greedy tokens; and
+    PaliGemma's forward over patch embeddings."""
+    cfg = cm.reduced(configs.get(name), quant_bits=8, n_layers=2)
+    cpu_model = lm.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    rng = np.random.default_rng(2)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 5)))
+    frames = torch.as_tensor(rng.normal(
+        size=(4, cfg.frontend_len, cfg.d_model)).astype(np.float32))
+    enc = frames if cfg.family == "encdec" else None
+    ctx = {"cpu": None, "cuda": None}
+    if enc is not None:
+        ctx = {"cpu": lm.encode(cpu_model, enc),
+               "cuda": lm.encode(gpu_model, enc.to(cuda))}
+    states = {"cpu": lm.decode_state_init(cfg, 4, 8, "cpu"),
+              "cuda": lm.decode_state_init(cfg, 4, 8, cuda)}
+    before = bpm.launches
+    for t in range(prompt.shape[1]):
+        got, _ = lm.decode_step(gpu_model, prompt[:, t:t + 1].to(cuda),
+                                states["cuda"], t, ctx=ctx["cuda"])
+        want, _ = lm.decode_step(cpu_model, prompt[:, t:t + 1],
+                                 states["cpu"], t, ctx=ctx["cpu"])
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-4)
+    assert bpm.launches - before == lm.packed_projections(gpu_model) * 5
+    before = bpm.launches
+    got = engine.generate(gpu_model, prompt.to(cuda), steps=3, max_len=9,
+                          enc_inputs=enc)
+    assert bpm.launches - before == lm.packed_projections(gpu_model) * 8 \
+        + lm.packed_projections(gpu_model, encoder=True)
+    want = engine.generate(cpu_model, prompt, steps=3, max_len=9,
+                           enc_inputs=enc)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    if cfg.prefix_lm:
+        got, _ = lm.forward(gpu_model, prompt.to(cuda),
+                            prefix_embeddings=frames.to(cuda))
+        want, _ = lm.forward(cpu_model, prompt, prefix_embeddings=frames)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-4)
+
+
 @pytest.mark.parametrize("name", ["smollm-360m", "recurrentgemma-2b",
                                   "xlstm-1.3b"])
 def test_reduced_model_on_card_matches_cpu(cuda, name):
@@ -225,9 +303,9 @@ def test_reduced_model_on_card_matches_cpu(cuda, name):
         lm.packed_projections(gpu_model) * (5 + 4)
     want = engine.generate(cpu_model, prompt, steps=4, max_len=10)
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
-    logits = lm.forward(gpu_model, prompt.to(cuda)).cpu()
+    logits = lm.forward(gpu_model, prompt.to(cuda))[0].cpu()
     np.testing.assert_allclose(logits.numpy(),
-                               lm.forward(cpu_model, prompt).numpy(),
+                               lm.forward(cpu_model, prompt)[0].numpy(),
                                rtol=0, atol=1e-4)
 
 

@@ -51,9 +51,9 @@ def test_forward_matches_jax(quant_bits, scan_layers):
     jcfg, params, model = _pair(quant_bits, scan_layers)
     toks = _tokens((2, 9), jcfg.vocab)
     want = np.asarray(jax_lm.forward(params, jnp.asarray(toks), jcfg)[0])
-    got = lm.forward(model, torch.as_tensor(toks))
+    got, _ = lm.forward(model, torch.as_tensor(toks))
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
-    last = lm.forward(model, torch.as_tensor(toks), last_only=True)
+    last, _ = lm.forward(model, torch.as_tensor(toks), last_only=True)
     np.testing.assert_allclose(last.numpy(), want[:, -1:], rtol=RTOL,
                                atol=ATOL)
 
@@ -65,7 +65,7 @@ def test_convert_reads_remainder_layers():
     assert len(params["stack"]["rem"]) == 1 and len(model.stack) == 3
     toks = _tokens((1, 6), jcfg.vocab, seed=3)
     want = np.asarray(jax_lm.forward(params, jnp.asarray(toks), jcfg)[0])
-    got = lm.forward(model, torch.as_tensor(toks))
+    got, _ = lm.forward(model, torch.as_tensor(toks))
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
@@ -115,7 +115,7 @@ def test_bf16_forward_close_to_jax():
     assert model.embed["e"].dtype == torch.bfloat16
     toks = _tokens((2, 6), jcfg.vocab, seed=2)
     want = np.asarray(jax_lm.forward(params, jnp.asarray(toks), jcfg)[0])
-    got = lm.forward(model, torch.as_tensor(toks)).numpy()
+    got = lm.forward(model, torch.as_tensor(toks))[0].numpy()
     assert np.abs(got - want).max() <= 0.05 * np.abs(want).max()
 
 
@@ -146,10 +146,13 @@ def test_gqa_maps_query_head_to_kv_head_by_floor_division():
 
 
 @pytest.mark.parametrize("over", [
-    dict(pattern=(("global", "moe"),)), dict(family="encdec")])
+    dict(pattern=(("sparse", "mlp"),)), dict(pattern=(("global", "glu"),))])
 def test_unported_family_raises(over):
-    """Families the port does not run yet (MoE FFNs, encoder-decoders)
-    are refused when the model is built."""
-    cfg = dataclasses.replace(configs.get("smollm-360m"), n_layers=1, **over)
-    with pytest.raises(NotImplementedError):
+    """Every family of the JAX package is ported, so what is refused now
+    is a layer of an unknown mixer or ffn kind: a ValueError when the
+    model is built, as the JAX `layer_init` refuses an unknown mixer."""
+    cfg = dataclasses.replace(configs.get("smollm-360m"), n_layers=1,
+                              d_model=64, d_ff=128, vocab=16, n_heads=4,
+                              kv_heads=2, **over)
+    with pytest.raises(ValueError, match="unknown"):
         lm.init(torch.Generator().manual_seed(0), cfg, "cpu")

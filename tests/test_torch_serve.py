@@ -70,7 +70,7 @@ def test_prefill_matches_forward_last_token(pair):
     toks = torch.as_tensor(np.random.default_rng(4).integers(0, 256, (2, 6)))
     logits, states = engine.prefill(model, toks, max_len=8)
     np.testing.assert_array_equal(logits.numpy(),
-                                  lm.forward(model, toks)[:, -1:].numpy())
+                                  lm.forward(model, toks)[0][:, -1:].numpy())
     assert len(states) == model.cfg.n_layers
     assert tuple(states[0]["k"].shape) == (2, 8, 2, 16)
 
