@@ -147,6 +147,30 @@ lines; any failure exits nonzero, and nothing is caught:
      projections times the decode-path calls (plus one encode's), the
      decode step, every projection held, casts, memory and busy share as
      in phase 15;
+ 17. training, on no kernel (projections are dense and trained; every
+     kernel's launch count is reset before the phase and must read 0
+     after it): (a) SmolLM-360M at full width and depth in f32, batch 1
+     x 128: the loss and every gradient leaf of a step on the card
+     against the same step on the CPU from the same params (loss within
+     1e-5 relative, each leaf within 1e-3 of its largest |grad|), and
+     the first and second moments the update writes; (b) SmolLM-360M in bf16 through
+     `train.loop.Trainer`: 8 x 2,048 tokens a step in 2 microbatches,
+     30 steps, AdamW at the launcher's defaults, async checkpoints every
+     10 steps (keep 2) and the final blocking save: median ms a step,
+     tokens/s, the share of the bf16 peak (6 x params x tokens), the
+     device's busy share over 3 steps (torch.profiler), peak memory,
+     each checkpoint's bytes and times; the mean loss of the last 5
+     steps at most 0.9 x the first 5's; (d) 10 steps from (b)'s
+     step-30 checkpoint with the f32 and with the int8 second moment,
+     the params' moves within 10% of each other; (c) under deterministic
+     algorithms, 20 steps, a restart and 10 more equal to 30 straight
+     steps bit for bit (params, moments, step); each directory of
+     checkpoints is deleted once read, and the most disk they took at
+     once is printed; (e) one step of
+     RecurrentGemma-2B (26 layers), Whisper-small (12 + 12 layers, 1,536
+     frames) and Mixtral-8x7B (2 of 32 layers) at full width: loss and
+     gradients finite, every gradient leaf nonzero, a plain SGD probe
+     along -grad lowers the loss; ms a step and peak memory;
 
 then one JSON line of kernel records (the bit-plane kernel's launches are
 phases 4's, 15's and 16's, the step kernel's phase 8's and phase 14's),
@@ -160,12 +184,17 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# set before CUDA starts: phase 17c runs under deterministic algorithms,
+# which need cuBLAS's fixed workspace (this is its size on Hopper anyway)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -2438,6 +2467,515 @@ def phase_new_families(bpm, bitplane, configs, common, lm, engine, dev,
     return sum(launched.values()), worst
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 2048, 2
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_KEEP = 30, 10, 2
+TRAIN_WARM = 3                 # steps left out of the median
+RESTART_AT, RESTART_BATCH = 20, 2   # (c): 2 x 2,048 tokens a step in one
+                                    # microbatch, a checkpoint at step 20
+INT8_STEPS = 10
+CHECK_SEQ = 128                # (a): batch 1 x 128, f32, card vs CPU
+V_HOLD = 2 * 1e-3 + 1e-3 ** 2  # (a): v's hold, from the gradients' 1e-3
+MIXTRAL_TRAIN_DEPTH = 2
+FAMILY_TRAIN = (               # (e): name, tag, depth, batch, seq
+    ("recurrentgemma-2b", "17e", None, 2, 512),
+    ("whisper-small", "17e", None, 2, 448),
+    ("mixtral-8x7b", "17e", MIXTRAL_TRAIN_DEPTH, 2, 512))
+
+
+class _Training:
+    """The port's training modules, imported once."""
+
+    def __init__(self):
+        from repro_torch import configs
+        from repro_torch.checkpoint import CheckpointManager, manager
+        from repro_torch.data import pipeline
+        from repro_torch.models import common, lm
+        from repro_torch.train import loop, optimizer, step
+        self.configs, self.common, self.lm = configs, common, lm
+        self.pipeline, self.loop, self.opt, self.step = (
+            pipeline, loop, optimizer, step)
+        self.CheckpointManager, self.manager = CheckpointManager, manager
+
+    def tcfg(self, total, microbatches=TRAIN_MICRO, int8=False):
+        """The launcher's AdamW defaults: lr 3e-3, warmup min(20, steps)."""
+        return self.step.TrainConfig(
+            adamw=self.opt.AdamWConfig(lr=3e-3, warmup_steps=min(20, total),
+                                       total_steps=total,
+                                       int8_second_moment=int8),
+            microbatches=microbatches)
+
+    def data(self, cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=1234):
+        return self.pipeline.SyntheticLM(self.pipeline.DataConfig(
+            vocab=cfg.vocab, global_batch=batch, seq_len=seq, seed=seed))
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def phase_train_vs_cpu(tr, dev):
+    """(a) SmolLM-360M at full width and depth in f32: the loss and every
+    gradient leaf of one step on the card against the same step on the
+    CPU from the same params (drawn once on the CPU and copied), then the
+    step's AdamW update on each side from those gradients (the rest of
+    `train_step`) and the first and second moments it writes (the params
+    do not move: the learning rate is 0 at step 0)."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(tr.configs.get("smollm-360m"), dtype="float32")
+    tcfg = tr.tcfg(TRAIN_STEPS, microbatches=1)
+    cpu = tr.step.init_state(torch.Generator().manual_seed(0), cfg, tcfg,
+                             "cpu")
+    gpu = tr.step.state_for(copy.deepcopy(cpu["params"]).to(dev), tcfg)
+    batch = tr.data(cfg, batch=1, seq=CHECK_SEQ, seed=7).batch_at(0)
+    t1 = time.perf_counter()
+    loss_c, _, g_c = tr.step.loss_and_grads(cpu["params"], batch, tcfg)
+    cpu_s = time.perf_counter() - t1
+    loss_g, _, g_g = tr.step.loss_and_grads(
+        gpu["params"], {k: v.to(dev) for k, v in batch.items()}, tcfg)
+    rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    worst, worst_name = 0.0, ""
+    for name, gc in g_c.items():
+        scale = float(gc.abs().max())
+        d = float((g_g[name].cpu() - gc).abs().max()) / max(scale, 1e-30)
+        if scale == 0 or d > worst:
+            worst, worst_name = max(worst, d), name
+        if scale == 0 or not d <= 1e-3:
+            fail(f"17a {name}: card gradient {d:.3e} of the leaf's largest "
+                 f"|grad| ({scale:.3e}) from the CPU's, above 1e-3")
+    if not rel <= 1e-5:
+        fail(f"17a loss {float(loss_g)!r} on the card, {float(loss_c)!r} on "
+             f"the CPU: {rel:.3e} relative, above 1e-5")
+    for state, grads in ((cpu, g_c), (gpu, g_g)):
+        tr.opt.apply_updates(dict(state["params"].named_parameters()),
+                             grads, state["opt"], state["step"], tcfg.adamw)
+    def apart(key):
+        return max(
+            float((gpu["opt"][n][key].float().cpu() - s[key].float())
+                  .abs().max())
+            / max(float(s[key].float().abs().max()), 1e-30)
+            for n, s in cpu["opt"].items())
+
+    m_worst, v_worst = apart("m"), apart("v")
+    if not m_worst <= 1e-2:
+        fail(f"17a first moment after the update {m_worst:.3e} of the "
+             "leaf's largest apart, above 1e-2 (1e-3 plus bf16 rounding)")
+    # v = (1 - b2) g^2 from zero: a gradient within e of the leaf's largest
+    # |g| puts v within 2e + e^2 of the leaf's largest v
+    if not v_worst <= V_HOLD:
+        fail(f"17a second moment after the update {v_worst:.3e} of the "
+             f"leaf's largest apart, above {V_HOLD:.4g} (2 x 1e-3 + 1e-6)")
+    n_params = sum(p.numel() for p in gpu["params"].parameters())
+    print(f"[17a] SmolLM-360M f32 ({n_params / 1e6:.1f} M params, "
+          f"{cfg.n_layers} layers, remat {cfg.remat}), batch 1 x "
+          f"{CHECK_SEQ}: loss {float(loss_g):.6f} on the card, "
+          f"{float(loss_c):.6f} on the CPU ({rel:.2e} relative, held at "
+          f"1e-5); {len(g_c)} gradient leaves, the farthest {worst:.2e} of "
+          f"its largest |grad| ({worst_name}; held at 1e-3); after the "
+          f"update the first moment within {m_worst:.2e} (held at 1e-2), "
+          f"the second within {v_worst:.2e} (held at {V_HOLD:.4g}); CPU "
+          f"step {cpu_s:.1f} s; {time.perf_counter() - t0:.1f} s")
+
+
+def _time_saves(mgr, log):
+    """Record each save's host copy (what the loop waits for) and each
+    write (on the save's thread, or in line when blocking)."""
+    save, write = mgr.save, mgr._save_sync
+
+    def timed_save(step, tree, blocking=True):
+        t0 = time.perf_counter()
+        out = save(step, tree, blocking=blocking)
+        log.append(("save", step, blocking, time.perf_counter() - t0))
+        return out
+
+    def timed_write(step, host):
+        t0 = time.perf_counter()
+        out = write(step, host)
+        log.append(("write", step, _nbytes_host(host),
+                    time.perf_counter() - t0))
+        return out
+
+    mgr.save, mgr._save_sync = timed_save, timed_write
+
+
+def _nbytes_host(host):
+    return sum(arr.nbytes for _, arr, _ in host)
+
+
+def _disk_bytes(root):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def _busy_share(run, calls, wall_s, tag):
+    """torch.profiler over `calls` calls of `run`, the device's activity
+    alone (a step makes tens of thousands of host events, slow to
+    gather): device time a call against the unprofiled wall time a call,
+    and the largest entries."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            run(i)
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    on_dev = [e for e in avg if str(e.device_type).endswith("CUDA")]
+    dev_us = sum(e.self_device_time_total for e in on_dev) / calls
+    if dev_us == 0:
+        print(f"[{tag}] the profiler recorded no device time: the "
+              "device's busy share is not measured")
+        return None
+    launches = sum(e.count for e in on_dev) / calls
+    print(f"[{tag}] device busy {dev_us / 1e3:.2f} ms a step of "
+          f"{1e3 * wall_s:.2f} ms wall unprofiled "
+          f"({100 * dev_us / (1e6 * wall_s):.1f}% busy), {launches:.0f} "
+          "device ops a step")
+    for e in sorted(on_dev, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[{tag}]   device {e.self_device_time_total / calls / 1e3:8.2f}"
+              f" ms/step {e.count // calls:5d}x  {e.key[:90]}")
+    print(f"[{tag}] profiling took {time.perf_counter() - t0:.1f} s")
+    return dev_us / (1e6 * wall_s)
+
+
+def phase_trainer(tr, dev, smi, root):
+    """(b) SmolLM-360M in bf16 at full width through `Trainer.run`:
+    8 x 2,048 tokens a step in 2 microbatches, 30 steps, AdamW at the
+    launcher's defaults, async checkpoints every 10 steps (keep 2) and
+    the final blocking save.  Returns the checkpoint directory."""
+    t0 = time.perf_counter()
+    cfg = tr.configs.get("smollm-360m")
+    tcfg = tr.tcfg(TRAIN_STEPS)
+    lcfg = tr.loop.LoopConfig(
+        total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+        ckpt_dir=os.path.join(root, "b"), keep_last=TRAIN_KEEP,
+        log_every=TRAIN_CKPT_EVERY)
+    data = tr.data(cfg)
+    trainer = tr.loop.Trainer(cfg, tcfg, lcfg, data, device=dev)
+    saves = []
+    _time_saves(trainer.ckpt, saves)
+    state = trainer.init_or_restore()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if int(state["step"]) != 0:
+        fail(f"17b a fresh directory resumed at step {int(state['step'])}")
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t1 = time.perf_counter()
+    state = trainer.run(state, on_step=lambda s, st, m: losses.append(
+        float(m["loss"])))
+    run_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    times = sorted(trainer.step_times[TRAIN_WARM:])
+    step_s = times[len(times) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    print(f"[17b] SmolLM-360M bf16 ({n_params / 1e6:.1f} M params, "
+          f"remat {cfg.remat}), {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step "
+          f"in {TRAIN_MICRO} microbatches, {TRAIN_STEPS} steps: median "
+          f"{1e3 * step_s:.2f} ms a step (steps {TRAIN_WARM}+; range "
+          f"{1e3 * times[0]:.2f}-{1e3 * times[-1]:.2f}), "
+          f"{tokens / step_s:,.0f} tokens/s, 6 x params x tokens = "
+          f"{flops / 1e12:.1f} TFLOP a step = "
+          f"{100 * flops / step_s / BF16_FLOP_PER_S:.2f}% of the "
+          f"{BF16_FLOP_PER_S / 1e12:.1f} TFLOPS bf16 peak (bound "
+          f"{1e3 * flops / BF16_FLOP_PER_S:.1f} ms); run {run_s:.1f} s "
+          f"wall ({run_s / TRAIN_STEPS * 1e3:.0f} ms a step with data and "
+          f"checkpoints); peak allocated {peak / 1e9:.2f} GB; {smi}")
+    print(f"[17b] loss: first 5 steps {', '.join(f'{x:.4f}' for x in losses[:5])}"
+          f"; last 5 {', '.join(f'{x:.4f}' for x in losses[-5:])}; means "
+          f"{first:.4f} -> {last:.4f}")
+    if not last <= 0.9 * first:
+        fail(f"17b mean loss of the last 5 steps {last:.4f} above 0.9 x the "
+             f"first 5's {first:.4f}")
+    for kind, step, what, dt in saves:
+        if kind == "save":
+            print(f"[17b] checkpoint at step {step} "
+                  f"({'blocking' if what else 'async'}): the loop waited "
+                  f"{dt:.3f} s (host copy{', write' if what else ''})")
+        else:
+            print(f"[17b] checkpoint at step {step}: {what / 1e9:.3f} GB "
+                  f"written and hashed in {dt:.3f} s ({what / dt / 1e9:.2f} "
+                  f"GB/s)")
+    want = _nbytes(dict(tr.manager.leaves(state)).values())
+    if any(kind == "write" and what != want for kind, _, what, _ in saves):
+        fail(f"17b a checkpoint's bytes differ from the state's {want}")
+    if trainer.ckpt.all_steps() != [TRAIN_STEPS - TRAIN_CKPT_EVERY,
+                                     TRAIN_STEPS]:
+        fail(f"17b keep_last={TRAIN_KEEP} left {trainer.ckpt.all_steps()}")
+    data_s = []
+
+    def one(i):
+        t = time.perf_counter()
+        batch = data.batch_at(TRAIN_STEPS + i)
+        data_s.append(time.perf_counter() - t)
+        trainer.step_fn(state, batch)
+
+    t1 = time.perf_counter()
+    _busy_share(one, 3, step_s, "17b profile")
+    profile_s = time.perf_counter() - t1
+    print(f"[17b] the data pipeline builds a batch on the host in "
+          f"{1e3 * min(data_s):.1f}-{1e3 * max(data_s):.1f} ms, outside the "
+          f"timed step; phase 17b {time.perf_counter() - t0:.1f} s (init "
+          f"{init_s:.1f} s, run {run_s:.1f} s, profile {profile_s:.1f} s)")
+    del trainer, state
+    return lcfg.ckpt_dir
+
+
+def phase_restart(tr, dev, root):
+    """(c) Restart against a straight run, bit for bit, under
+    `torch.use_deterministic_algorithms(True)`: (b)'s model and AdamW at
+    batch 2 x 2,048 in one microbatch (a step's ~20,000 launches, not
+    its tokens, set the pace at this size), 30 steps straight, then 20
+    steps and a new `Trainer` with total_steps=30 that resumes at step
+    20 in another directory."""
+    t0 = time.perf_counter()
+    cfg = tr.configs.get("smollm-360m")
+    tcfg = tr.tcfg(TRAIN_STEPS, microbatches=1)
+    data = tr.data(cfg, batch=RESTART_BATCH)
+
+    def trainer(sub, total):
+        return tr.loop.Trainer(cfg, tcfg, tr.loop.LoopConfig(
+            total_steps=total, ckpt_every=RESTART_AT,
+            ckpt_dir=os.path.join(root, sub), keep_last=TRAIN_KEEP,
+            log_every=TRAIN_STEPS), data, device=dev)
+
+    runs = []
+
+    def run(t, state):
+        t1 = time.perf_counter()
+        state = t.run(state)
+        times = sorted(t.step_times)
+        runs.append(f"{len(times)} steps in {time.perf_counter() - t1:.1f} s"
+                    f" (median {1e3 * times[len(times) // 2]:.1f} ms)")
+        return state
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        a = trainer("c_straight", TRAIN_STEPS)
+        straight = run(a, a.init_or_restore())
+        shutil.rmtree(a.ckpt.dir)
+        b = trainer("c_restart", RESTART_AT)
+        run(b, b.init_or_restore())
+        b2 = trainer("c_restart", TRAIN_STEPS)
+        t1 = time.perf_counter()
+        resumed = b2.init_or_restore()
+        restore_s = time.perf_counter() - t1
+        if int(resumed["step"]) != RESTART_AT:
+            fail(f"17c resumed at step {int(resumed['step'])}, not "
+                 f"{RESTART_AT}")
+        resumed = run(b2, resumed)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    shutil.rmtree(b2.ckpt.dir)
+    ta = dict(tr.manager.leaves(straight))
+    tb = dict(tr.manager.leaves(resumed))
+    differ = [k for k in ta if not torch.equal(ta[k], tb[k])]
+    if differ:
+        worst = max(float((ta[k].double() - tb[k].double()).abs().max())
+                    for k in differ)
+        fail(f"17c {len(differ)} of {len(ta)} tensors differ after the "
+             f"restart (first {differ[0]}, max |d| {worst:.3e})")
+    print(f"[17c] {RESTART_AT} steps, restart, {TRAIN_STEPS - RESTART_AT} "
+          f"more = {TRAIN_STEPS} straight ({RESTART_BATCH} x {TRAIN_SEQ} "
+          f"tokens a step, deterministic algorithms): all {len(ta)} "
+          f"tensors (params, m, v, step; {_nbytes(ta.values()) / 1e9:.3f} "
+          f"GB) bit for bit equal; straight {runs[0]}, then {runs[1]}, "
+          f"restore {restore_s:.1f} s, {runs[2]}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_int8_moment(tr, dev, ckpt_dir):
+    """(d) 10 steps of (b)'s set-up from (b)'s step-30 checkpoint (its
+    directory deleted once restored), once with the f32 second moment
+    and once with it in int8 (encoded from the same f32 v): the params'
+    moves held within 10% of each other."""
+    t0 = time.perf_counter()
+    cfg = tr.configs.get("smollm-360m")
+    total = TRAIN_STEPS + INT8_STEPS
+    data = tr.data(cfg)
+    moves, state_bytes, step_ms = {}, {}, {}
+    saved = tr.step.init_state(torch.Generator(device=dev).manual_seed(9),
+                               cfg, tr.tcfg(total), dev)
+    _, step = tr.CheckpointManager(ckpt_dir).restore(saved)
+    shutil.rmtree(ckpt_dir)
+    if step != TRAIN_STEPS:
+        fail(f"17d restored step {step}, not {TRAIN_STEPS}")
+    for int8 in (False, True):
+        tcfg = tr.tcfg(total, int8=int8)
+        state = copy.deepcopy(saved)
+        if int8:
+            for s in state["opt"].values():
+                s["v_q"], s["v_s"] = tr.opt._q8_encode(s.pop("v"))
+        before = [p.detach().to(torch.float32, copy=True)
+                  for p in state["params"].parameters()]
+        state_bytes[int8] = _nbytes(t for s in state["opt"].values()
+                                    for t in s.values())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(INT8_STEPS):
+            state, m = tr.step.train_step(state, data.batch_at(step + i), cfg,
+                                          tcfg)
+        float(m["loss"])
+        step_ms[int8] = (time.perf_counter() - t1) / INT8_STEPS * 1e3
+        moves[int8] = torch.cat([(p.detach().float() - b).reshape(-1)
+                                 for p, b in zip(
+                                     state["params"].parameters(), before)])
+        del state, before
+    del saved
+    ratio = float((moves[True] - moves[False]).norm() / moves[False].norm())
+    print(f"[17d] {INT8_STEPS} steps from step {TRAIN_STEPS}: "
+          f"|dp_int8 - dp_f32| / |dp_f32| = {ratio:.4f} (held below 0.1); "
+          f"|dp_f32| {float(moves[False].norm()):.4f}; optimizer state "
+          f"{state_bytes[False] / 1e9:.3f} GB with f32 v, "
+          f"{state_bytes[True] / 1e9:.3f} GB with int8 v; "
+          f"{step_ms[False]:.1f} and {step_ms[True]:.1f} ms a step; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not ratio < 0.1:
+        fail(f"17d int8 second moment moved the params {ratio:.4f} of the "
+             "f32 move away, not below 0.1")
+
+
+def _mixtral_train_why(configs):
+    full = configs.get("mixtral-8x7b")
+    one = _expert_bytes(full) // 2                      # params a layer
+    return (f"each layer's experts are {one / 1e9:.2f} G params, 10 bytes "
+            f"each with their bf16 grads and m and f32 v: "
+            f"{10 * one / 1e9:.1f} GB a layer, {full.n_layers * 10 * one / 1e9:.0f}"
+            f" GB at {full.n_layers} layers, so {MIXTRAL_TRAIN_DEPTH} layers")
+
+
+def _arctic_train_why(configs):
+    full = configs.get("arctic-480b")
+    one = _expert_bytes(full) // 2
+    total = torch.cuda.get_device_properties(0).total_memory
+    return (f"Arctic-480B is left out: one layer's {full.n_experts} experts "
+            f"are {one / 1e9:.1f} G params, {2 * one / 1e9:.1f} GB in bf16 and "
+            f"{10 * one / 1e9:.0f} GB with their grads, m and v, beyond the "
+            f"card's {total / 1e9:.1f} GB")
+
+
+def phase_train_family(tr, dev, smi, name, tag, depth, b, s, why=""):
+    """(e) One step of a family whose backward SmolLM does not reach, at
+    full width: loss and every gradient leaf finite, a nonzero gradient
+    on every leaf, a lower loss after a plain SGD probe along -grad on
+    the same batch (lr 0.5, 0.1, 0.02), then two `train_step`s, the
+    second timed, with the peak memory."""
+    t0 = time.perf_counter()
+    over = {"n_layers": depth} if depth else {}
+    cfg = tr.configs.get(name, **over)
+    tcfg = tr.tcfg(TRAIN_STEPS, microbatches=1)
+    torch.cuda.reset_peak_memory_stats()
+    state = tr.step.init_state(torch.Generator(device=dev).manual_seed(0),
+                               cfg, tcfg, dev)
+    model = state["params"]
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = {k: v.to(dev) for k, v in
+             tr.data(cfg, batch=b, seq=s, seed=11).batch_at(0).items()}
+    extra = ""
+    if cfg.family == "encdec":
+        batch["enc_inputs"] = torch.randn(
+            (b, cfg.frontend_len, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(3))
+        extra = f", seeded frames [{b}, {cfg.frontend_len}, {cfg.d_model}]"
+    loss0, metrics, grads = tr.step.loss_and_grads(model, batch, tcfg)
+    if not bool(torch.isfinite(loss0)):
+        fail(f"{tag} {name}: loss {float(loss0)}")
+    bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
+    zero = [n for n, g in grads.items() if not bool(g.any())]
+    if bad or zero:
+        fail(f"{tag} {name}: non-finite gradients {bad[:3]}, zero "
+             f"gradients {zero[:3]}")
+    params = dict(model.named_parameters())
+    saved = {n: p.detach().clone() for n, p in params.items()}
+    probe = []
+    with torch.no_grad():
+        for lr in (0.5, 0.1, 0.02):
+            for n, p in params.items():
+                p.copy_(saved[n] - lr * grads[n].to(p.dtype))
+            loss1, _ = tr.lm.loss_fn(model, batch)
+            probe.append((lr, float(loss1)))
+            if float(loss1) < float(loss0):
+                break
+        for n, p in params.items():
+            p.copy_(saved[n])
+    del saved, grads
+    if not probe[-1][1] < float(loss0):
+        fail(f"{tag} {name}: SGD probe {probe} did not lower the loss "
+             f"{float(loss0):.4f}")
+    state, m = tr.step.train_step(state, batch, cfg, tcfg)
+    float(m["loss"])
+    t1 = time.perf_counter()
+    state, m = tr.step.train_step(state, batch, cfg, tcfg)
+    float(m["loss"])
+    step_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    kinds = {}
+    for k in cfg.layer_kinds():
+        kinds[f"{k[0]}+{k[1]}"] = kinds.get(f"{k[0]}+{k[1]}", 0) + 1
+    print(f"[{tag}] {name} bf16, {cfg.n_layers} layers ("
+          + ", ".join(f"{v} {k}" for k, v in kinds.items())
+          + (f"; {cfg.enc_layers} encoder layers" if cfg.enc_layers else "")
+          + f"), {n_params / 1e9:.3f} G params, batch {b} x {s}{extra}"
+          + (f"; depth cut to {depth} of {tr.configs.get(name).n_layers}: "
+             f"{why}" if depth else "")
+          + f": loss {float(loss0):.4f} (aux {float(metrics['aux']):.4f}), "
+          f"{len(params)} gradient leaves finite and nonzero; SGD probe "
+          f"{', '.join(f'lr {lr}: {x:.4f}' for lr, x in probe)}; "
+          f"{1e3 * step_s:.1f} ms a train_step; peak allocated "
+          f"{peak / 1e9:.2f} GB; {time.perf_counter() - t0:.1f} s; {smi}")
+    del state, model, params
+
+
+def phase_train(bpm, cs, ks, dev, smi):
+    """Phase 17: training on the card (a-e), every kernel's launch count
+    reset just before and read just after; no kernel lies on the
+    training path (projections are dense and trained), so all stay 0."""
+    import tempfile
+    t0 = time.perf_counter()
+    tr = _Training()
+    bpm.launches = 0
+    cs.launches = 0
+    ks.reset()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    # the checkpoints' disk use peaks just after a save is published,
+    # before the older ones are collected
+    gc, disk = tr.CheckpointManager._gc, [0]
+
+    def measured_gc(mgr):
+        disk[0] = max(disk[0], _disk_bytes(root))
+        gc(mgr)
+
+    tr.CheckpointManager._gc = measured_gc
+    try:
+        phase_train_vs_cpu(tr, dev)
+        ckpt_dir = phase_trainer(tr, dev, smi, root)
+        phase_int8_moment(tr, dev, ckpt_dir)
+        phase_restart(tr, dev, root)
+        for name, tag, depth, b, s in FAMILY_TRAIN:
+            why = _mixtral_train_why(tr.configs) if depth else ""
+            phase_train_family(tr, dev, smi, name, tag, depth, b, s, why)
+            torch.cuda.empty_cache()
+        print(f"[17e] {_arctic_train_why(tr.configs)}")
+    finally:
+        tr.CheckpointManager._gc = gc
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[17 train] checkpoints took at most {disk[0] / 1e9:.3f} GB of "
+          f"the temporary directory at once")
+    launched = {"bitplane_matmul": bpm.launches, "comefa_step": cs.launches,
+                **ks.counts()}
+    if any(launched.values()):
+        fail(f"17 kernels launched on the training path: {launched}")
+    print(f"[17 train] kernel launches in phase 17: {launched} (none on "
+          f"the training path); phase 17 took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main():
     sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
@@ -2505,6 +3043,7 @@ def main():
         bpm, bitplane, configs, common, lm, engine, dev, smi)
     print(f"[16 families] bit-plane kernel launches: phase 4 {launched}, "
           f"phase 15 {family_launched}, phase 16 {new_launched}")
+    phase_train(bpm, cs, ks, dev, smi)
     record = {"kernels": [
         {"name": "bitplane_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitplane_matmul.cu",

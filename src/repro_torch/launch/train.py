@@ -1,0 +1,96 @@
+DOC = """Training launcher: the fault-tolerant loop on one device.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
+      --steps 100 [--reduced] [--batch 16 --seq 128] [--device cuda]
+
+--arch is one of the ten configs of `repro_torch.configs`; --reduced
+trains a tiny config of the same family.  Whisper-small's batches carry
+seeded frame embeddings [batch, frontend_len, d_model] for its encoder
+and PaliGemma-3B's seeded patch embeddings as its prefix, standing in
+for their frontends.  --microbatches splits each batch for gradient
+accumulation; --int8-v keeps AdamW's second moment in int8.  The loop
+checkpoints under --ckpt and resumes from the newest valid checkpoint
+there.  Params are random, from a seeded generator.  --device defaults
+to cuda and raises where there is no GPU; --device cpu trains on the
+CPU.  --quant (packed bit-plane weights) cannot be trained and raises.
+"""
+import argparse
+import os
+import tempfile
+
+
+class FrontendLM:
+    """`SyntheticLM` batches plus the seeded embeddings a frontend would
+    give: ``enc_inputs`` for an encoder-decoder, ``prefix_embeddings``
+    for a vision prefix, f32 [batch, frontend_len, d_model], drawn from
+    (seed, step) alone like the tokens."""
+
+    def __init__(self, data, cfg, seed: int = 3):
+        self.data, self.cfg, self.seed = data, cfg, seed
+        self.key = "enc_inputs" if cfg.family == "encdec" else \
+            "prefix_embeddings"
+
+    def batch_at(self, step: int):
+        import numpy as np
+        import torch
+
+        batch = self.data.batch_at(step)
+        rng = np.random.default_rng((self.seed, step))
+        emb = rng.standard_normal(
+            (batch["tokens"].shape[0], self.cfg.frontend_len,
+             self.cfg.d_model), dtype=np.float32)
+        batch[self.key] = torch.from_numpy(emb)
+        return batch
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description=DOC, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--int8-v", action="store_true")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--quant", type=int, default=None)
+    ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(),
+                                                   "repro_torch_ckpt"))
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import common
+    from repro_torch.train import loop as loop_mod
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_mod
+
+    if args.arch not in configs.REGISTRY:
+        ap.error(f"--arch {args.arch!r}: the port runs "
+                 f"{', '.join(configs.ARCHS)}")
+    cfg = configs.get(args.arch, quant_bits=args.quant)
+    if args.reduced:
+        cfg = common.reduced(cfg, vocab=512, d_model=128, d_ff=256,
+                             n_layers=max(len(cfg.pattern), 2),
+                             quant_bits=args.quant)
+    common.device(args.device)
+    tcfg = step_mod.TrainConfig(
+        adamw=opt.AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps),
+                              total_steps=args.steps,
+                              int8_second_moment=args.int8_v),
+        microbatches=args.microbatches)
+    lcfg = loop_mod.LoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, global_batch=args.batch,
+                                  seq_len=args.seq))
+    if cfg.frontend_len:
+        data = FrontendLM(data, cfg)
+    trainer = loop_mod.Trainer(cfg, tcfg, lcfg, data, device=args.device)
+    state = trainer.init_or_restore()
+    state = trainer.run(state)
+    print(f"finished at step {int(state['step'])}")
+
+
+if __name__ == "__main__":
+    main()

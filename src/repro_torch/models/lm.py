@@ -8,14 +8,22 @@ self-attention, then cross-attention over the encoder's output),
 package stacks homogeneous layer groups under `lax.scan`; here a stack
 is a plain `nn.ModuleList` in layer order, layer j of kind
 ``pattern[j % len(pattern)]`` (groups first, then the remainder layers,
-as the JAX stack applies them), and `scan_layers`/`remat` have no
-meaning.  An encoder-decoder (``family == "encdec"``) has a second stack,
+as the JAX stack applies them), and `scan_layers` has no meaning.
+``cfg.remat`` does what it does in the JAX package, where it wraps each
+layer group in `jax.checkpoint` with nothing saved: where a gradient is
+taken, each layer runs under `torch.utils.checkpoint` and its
+activations are recomputed in the backward pass; the numbers do not
+change.  An encoder-decoder (``family == "encdec"``) has a second stack,
 ``enc_stack`` of ``cfg.enc_layers`` layers of ``cfg.enc_pattern``, and
 its norm ``enc_nf``.
 
 Decode threads one state dict per layer through the stack (a KV cache
 for attention, the recurrent state otherwise); the states are updated in
 place.
+
+Params are created without gradients, so serving builds no autograd
+graph; `trainable` turns gradients on for a model that is to be trained
+(`repro_torch.train.step` does), and `loss_fn` is the training loss.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from . import attention as attn
 from . import common as cm
@@ -113,6 +122,20 @@ def layer_apply(p: Layer, x, cfg: Config, *, ctx=None, prefix_len: int = 0):
     return _ffn_block(p, x + y, cfg)
 
 
+def _layer_run(p: Layer, x, cfg: Config, *, ctx=None, prefix_len: int = 0):
+    """`layer_apply`, recomputed in the backward pass (``cfg.remat``)
+    where a gradient is taken through the layer.  The forward draws no
+    random numbers, so the RNG state is not kept; an MoE layer's
+    recomputation routes as its first pass did (routing is a function of
+    the layer's input alone)."""
+    if cfg.remat and torch.is_grad_enabled() and (
+            x.requires_grad or p.n1.g.requires_grad):
+        return ckpt.checkpoint(layer_apply, p, x, cfg, ctx=ctx,
+                               prefix_len=prefix_len, use_reentrant=False,
+                               preserve_rng_state=False)
+    return layer_apply(p, x, cfg, ctx=ctx, prefix_len=prefix_len)
+
+
 def layer_state_init(cfg: Config, batch: int, max_len: int, kinds,
                      dev) -> Dict[str, torch.Tensor]:
     mixer = kinds[0]
@@ -194,13 +217,34 @@ def init(generator: torch.Generator, cfg: Config, device="cuda") -> LM:
     return LM(cfg, generator, dev)
 
 
+def trainable(params: LM) -> Dict[str, nn.Parameter]:
+    """Turn gradients on for every param of the model and return them by
+    state-dict name, in state-dict order.  Packed bit-planes are integer
+    buffers, not params, and cannot be trained (nor can the JAX
+    package's, whose `value_and_grad` refuses uint32): a model holding
+    any raises ValueError naming them."""
+    packed = [name for name, m in params.named_modules()
+              if isinstance(m, cm.PackedLinear) and m.packed is not None]
+    if packed:
+        raise ValueError(
+            f"{params.cfg.name}: {len(packed)} packed projections cannot "
+            f"be trained ({', '.join(packed[:3])}, ...); train the model "
+            "with quant_bits=None")
+    out = {}
+    for name, p in params.named_parameters():
+        out[name] = p.requires_grad_(True)
+    return out
+
+
 def _embed_tokens(params: LM, tokens, cfg: Config):
     e = params.embed["e"]
     # sqrt(d_model) is rounded to the embedding dtype first, as in the JAX
     # code: in bf16, sqrt(960) becomes 31.0
     s = float(torch.tensor(math.sqrt(cfg.d_model),
                            dtype=torch.float32).to(e.dtype))
-    return (e[tokens] * s).to(cfg.adtype)
+    # a row gather whose backward sums in a fixed order on the CPU too
+    # (indexing's backward, an accumulating index_put, does not there)
+    return (nn.functional.embedding(tokens, e) * s).to(cfg.adtype)
 
 
 def packed_projections(params: LM, encoder: bool = False) -> int:
@@ -236,7 +280,7 @@ def encode(params: LM, enc_inputs) -> torch.Tensor:
                          "enc_inputs")
     h = torch.as_tensor(enc_inputs, device=params.device).to(cfg.adtype)
     for layer in params.enc_stack:
-        h, _ = layer_apply(layer, h, cfg)
+        h, _ = _layer_run(layer, h, cfg)
     return cm.rmsnorm(params.enc_nf, h, cfg.norm_eps)
 
 
@@ -262,8 +306,8 @@ def forward(params: LM, tokens, *, enc_inputs=None, prefix_embeddings=None,
         ctx = encode(params, enc_inputs)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.stack:
-        x, a = layer_apply(layer, x, cfg, ctx=ctx,
-                           prefix_len=prefix_len if cfg.prefix_lm else 0)
+        x, a = _layer_run(layer, x, cfg, ctx=ctx,
+                          prefix_len=prefix_len if cfg.prefix_lm else 0)
         if a is not None:
             aux = aux + a
     if prefix_len:
@@ -271,6 +315,30 @@ def forward(params: LM, tokens, *, enc_inputs=None, prefix_embeddings=None,
     if last_only:
         x = x[:, -1:]
     return _logits(params, x, cfg), aux
+
+
+def loss_fn(params: LM, batch: Dict[str, torch.Tensor],
+            aux_weight: float = 0.01):
+    """Mean next-token cross entropy plus ``aux_weight`` times the MoE
+    aux loss: returns (loss, {"nll", "aux"}), f32 scalars.
+
+    `batch` holds ``tokens`` and ``labels`` [B, S] (a label below 0 is
+    not counted: the data pipeline puts -1 at the last position of every
+    row) and, where the model takes them, ``enc_inputs`` or
+    ``prefix_embeddings``.  `torch.gather` refuses the index -1 that
+    JAX's `take_along_axis` takes, so labels are clamped to 0 first and
+    the mask zeroes those terms and their gradient.
+    """
+    logits, aux = forward(
+        params, batch["tokens"], enc_inputs=batch.get("enc_inputs"),
+        prefix_embeddings=batch.get("prefix_embeddings"))
+    labels = batch["labels"]
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1,
+                      labels.clamp(min=0).to(torch.long)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    nll = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
 def decode_state_init(cfg: Config, batch: int, max_len: int,

@@ -30,9 +30,10 @@ RTOL, ATOL = 1e-4, 1e-5
 # layers where the pattern is one layer long, so that a layer reads
 # another's output (Whisper: two decoder and, by `reduced`, two encoder
 # layers)
-DEPTH = {"recurrentgemma-2b": 5, "xlstm-1.3b": 8, "gemma2-27b": 3,
-         "gemma3-27b": 8, "starcoder2-7b": 2, "mixtral-8x7b": 2,
-         "arctic-480b": 2, "whisper-small": 2, "paligemma-3b": 2}
+DEPTH = {"smollm-360m": 2, "recurrentgemma-2b": 5, "xlstm-1.3b": 8,
+         "gemma2-27b": 3, "gemma3-27b": 8, "starcoder2-7b": 2,
+         "mixtral-8x7b": 2, "arctic-480b": 2, "whisper-small": 2,
+         "paligemma-3b": 2}
 
 jax_forward = jax.jit(jax_lm.forward, static_argnames=("cfg", "last_only"))
 jax_decode = jax.jit(jax_lm.decode_step, static_argnames=("cfg",))

@@ -13,7 +13,9 @@ and the bit-serial and
 bulk-bitwise kernels (bit transpose and untranspose, search-replace, RAID
 XOR, bit-serial reduce and matmul) against their plain versions, bit for
 bit, with the bit-serial matmul's binary-MMA tiling swept over ragged
-shapes and held to one launch and no scratch a call.
+shapes and held to one launch and no scratch a call; and training: a
+reduced train step on the card against the CPU, and a checkpoint round
+trip of a bf16 train state on the card.
 
 Every test here needs the card: it carries the `cuda` marker and skips
 where `torch.cuda.is_available()` is False.  The file imports no JAX, so
@@ -33,7 +35,9 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.comefa import ComefaGrid, engine_packed, isa
+from repro_torch.data import pipeline
 from repro_torch.kernels import bit_transpose as bt
 from repro_torch.kernels import bitplane_matmul as bpm
 from repro_torch.kernels import bitserial_matmul as bsm
@@ -45,6 +49,8 @@ from repro_torch.models import common as cm
 from repro_torch.models import lm
 from repro_torch.quant import bitplane as bp
 from repro_torch.serve import comefa_exec, engine
+from repro_torch.train import optimizer as train_opt
+from repro_torch.train import step as train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -805,3 +811,68 @@ def test_new_kernels_raise_instead_of_falling_back(cuda):
         bsm.bitserial_matmul(xp, wp, torch.ones((2, 1)),
                              torch.ones((1, 8), device=cuda), a_bits=4,
                              w_bits=4)
+
+
+# ---------------------------------------------------------------------------
+# training on the card (chip_smoke.py phase 17 runs the same at full width)
+# ---------------------------------------------------------------------------
+
+def _train_setup(dtype="float32"):
+    cfg = cm.reduced(configs.get("smollm-360m"), vocab=128, n_layers=2,
+                     dtype=dtype)
+    tcfg = train_step.TrainConfig(adamw=train_opt.AdamWConfig(
+        lr=3e-3, warmup_steps=1, total_steps=4), microbatches=2)
+    data = pipeline.SyntheticLM(pipeline.DataConfig(
+        vocab=128, global_batch=8, seq_len=64, seed=5))
+    return cfg, tcfg, data
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Two microbatched steps of reduced SmolLM (f32) from the same
+    params on the card and on the CPU: losses within 1e-5 relative; the
+    params within 1e-5 plus lr * 2^-7 (a stored bf16 first moment one
+    ulp apart moves the second step's update by up to 2^-8)."""
+    cfg, tcfg, data = _train_setup()
+    cpu = train_step.init_state(torch.Generator().manual_seed(0), cfg, tcfg,
+                                "cpu")
+    gpu = train_step.state_for(copy.deepcopy(cpu["params"]).to(cuda), tcfg)
+    for step in range(2):
+        batch = data.batch_at(step)
+        cpu, mc = train_step.train_step(cpu, batch, cfg, tcfg)
+        gpu, mg = train_step.train_step(gpu, batch, cfg, tcfg)
+        assert mg["loss"].device.type == cuda.type
+        np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]),
+                                   rtol=1e-5)
+    for (name, p), q in zip(gpu["params"].named_parameters(),
+                            cpu["params"].parameters()):
+        np.testing.assert_allclose(p.detach().cpu().numpy(),
+                                   q.detach().numpy(), rtol=1e-5,
+                                   atol=1e-5 + 3e-3 * 2.0 ** -7,
+                                   err_msg=name)
+
+
+def test_checkpoint_round_trip_of_cuda_bf16_state(cuda, tmp_path):
+    """A bf16 train state on the card saved asynchronously, then updated
+    in place by the next step: the checkpoint holds the state as it was
+    at the save, and restores into another state on the card bit for
+    bit (bf16 params and m as 16-bit patterns, f32 v, the int32 step)."""
+    cfg, tcfg, data = _train_setup("bfloat16")
+    state = train_step.init_state(torch.Generator(device=cuda).manual_seed(0),
+                                  cfg, tcfg, cuda)
+    state, _ = train_step.train_step(state, data.batch_at(0), cfg, tcfg)
+    state, _ = train_step.train_step(state, data.batch_at(1), cfg, tcfg)
+    want = [t.clone() for t in state["params"].state_dict().values()]
+    want += [t.clone() for s in state["opt"].values() for t in s.values()]
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(2, state, blocking=False)
+    state, _ = train_step.train_step(state, data.batch_at(2), cfg, tcfg)
+    mgr.wait()
+    fresh = train_step.init_state(torch.Generator(device=cuda).manual_seed(1),
+                                  cfg, tcfg, cuda)
+    _, step = mgr.restore(fresh)
+    assert step == 2 and int(fresh["step"]) == 2
+    got = list(fresh["params"].state_dict().values())
+    got += [t for s in fresh["opt"].values() for t in s.values()]
+    assert got[0].device.type == cuda.type and got[0].dtype == torch.bfloat16
+    assert len(got) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
