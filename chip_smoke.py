@@ -171,9 +171,36 @@ lines; any failure exits nonzero, and nothing is caught:
      frames) and Mixtral-8x7B (2 of 32 layers) at full width: loss and
      gradients finite, every gradient leaf nonzero, a plain SGD probe
      along -grad lowers the loss; ms a step and peak memory;
+ 18. the distribution layer on one card: (a) `examples/quickstart_torch.py`
+     on the CPU and then on the card, with the bit-plane and step
+     kernels' launch counts reset just before and read just after: its
+     three checks hold and every line equals the CPU run's; (b)
+     `launch.mesh.make_host_mesh()`: a (1, 1) ("data", "model") mesh on
+     cuda over the one-rank NCCL group it starts; (c)
+     `serve.engine.make_jitted_serve_step` on that mesh, full SmolLM-360M
+     (32 layers, bf16, 8-bit planes, seeded params), batch 4, phase 4's
+     max_len: the decode step captured as one CUDA graph at the first
+     call and replayed, primed with an 8-token prompt, then 16 replayed
+     steps with the launch count reset just before and read just after
+     (224 x 16), and 16 eager `lm.decode_step`s from a copy of the primed
+     state on the same tokens, logits and every state tensor
+     `torch.equal` at each step; capture time, memory, ms a step replayed
+     and eager (medians, same call) and the replay's busy share
+     (torch.profiler); a second states list captures its own graph and
+     gives the first list's logits; (d) `train.step.make_jitted_train_step`
+     on that mesh against `train_step`, SmolLM-360M in f32 at 1 x 128, 2
+     steps under deterministic algorithms, bit for bit; (e)
+     `parallel.compression.compress_psum` and
+     `parallel.pipeline.pipelined_apply` on the one NCCL rank, each
+     exactly equal to what one rank must give; (f) #1 and torch.matmul
+     against the f64 product of their own operands at PaliGemma's prefix
+     projections (M = 1,056) and Whisper's cross K/V (M = 6,144), y in
+     f32 (also bf16 torch.mm with f32 y) and in bf16, each one's largest
+     gap relative to the largest |y|;
 
 then one JSON line of kernel records (the bit-plane kernel's launches are
-phases 4's, 15's and 16's, the step kernel's phase 8's and phase 14's),
+phases 4's, 15's, 16's and 18's, the step kernel's phase 8's, phase 14's
+and phase 18's),
 the card's name and power limit as nvidia-smi prints them, and the
 result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -2976,6 +3003,344 @@ def phase_train(bpm, cs, ks, dev, smi):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the distribution layer, the quickstart and the captured step
+# ---------------------------------------------------------------------------
+
+REPLAY_STEPS = 16
+PRIME_LEN = 8
+SERVE_MAX_LEN = PRIME_LEN + 24 + 1   # phase 4's generate: 8 + 24 + 1
+# PaliGemma's prefix forward: batch 4 x (256 patches + 8 tokens)
+PREFIX_M = M_DECODE * (256 + 8)
+
+
+def _load_example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_quickstart(bpm, cs):
+    """(a) `examples/quickstart_torch.py` on the CPU, then on the card
+    with the bit-plane and step kernels' launch counts reset just before
+    and read just after: its three checks hold on the card and every
+    line it prints equals the CPU run's."""
+    import contextlib
+    import io
+    qs = _load_example("quickstart_torch")
+    lines = {}
+    for device in ("cpu", "cuda"):
+        buf = io.StringIO()
+        bpm.launches = 0
+        cs.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            qs.main(["--device", device])
+        torch.cuda.synchronize()
+        lines[device] = buf.getvalue().splitlines()
+        took = time.perf_counter() - t0
+    launched = {"bitplane_matmul": bpm.launches, "comefa_step": cs.launches}
+    for line in lines["cuda"]:
+        print(f"[18a quickstart] {line}")
+    text = "\n".join(lines["cuda"])
+    checks = ("paper formula n^2+3n-2 = 86" in text,
+              "kernel == torch oracle: True" in text, "finite: True" in text)
+    print(f"[18a quickstart] on the card in {took:.1f} s: checks {checks}, "
+          f"every line equal to the CPU run's: "
+          f"{lines['cuda'] == lines['cpu']}; launches {launched} (the "
+          f"4-bit matmul and the reduced model's 7 projections on #1, the "
+          f"multiply on #2)")
+    if not all(checks) or lines["cuda"] != lines["cpu"]:
+        fail(f"18a the quickstart on the card: {lines['cuda']} against the "
+             f"CPU's {lines['cpu']}")
+    if launched["bitplane_matmul"] != 8 or launched["comefa_step"] < 1:
+        fail(f"18a the quickstart did not run on the kernels: {launched}")
+    return launched
+
+
+def phase_host_mesh():
+    """(b) `launch.mesh.make_host_mesh()` on one card: a (1, 1) ("data",
+    "model") mesh on cuda over the one-rank NCCL group it starts."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    t0 = time.perf_counter()
+    mesh = mesh_mod.make_host_mesh()
+    got = (tuple(mesh.shape), tuple(mesh.mesh_dim_names), mesh.device_type,
+           dist.get_backend(), dist.get_world_size())
+    print(f"[18b mesh] make_host_mesh(): shape {got[0]}, axes {got[1]}, "
+          f"{got[2]}, backend {got[3]}, world {got[4]}, "
+          f"{time.perf_counter() - t0:.2f} s")
+    if got != ((1, 1), ("data", "model"), "cuda", "nccl", 1):
+        fail(f"18b host mesh {got}")
+    return mesh
+
+
+def _snapshot(states):
+    return [{k: v.clone() for k, v in st.items()} for st in states]
+
+
+def phase_captured_serve(bpm, configs, lm, engine, mesh, dev, smi):
+    """(c) `make_jitted_serve_step` on the (1, 1) mesh, full SmolLM-360M
+    (32 layers, bf16, 8-bit planes, seeded params), batch 4, phase 4's
+    max_len: primed with an 8-token prompt (the first call captures),
+    then 16 replayed steps, counted (launches = packed projections x
+    steps), then 16 eager `lm.decode_step`s from a copy of the primed
+    state on the same tokens, each step's logits and every state tensor
+    `torch.equal` to the replay's; ms a step of each (median, host clock
+    to a synchronised end), capture time, graph pool bytes, the replay's
+    busy share; a second states list captures its own graph and gives
+    the first list's logits."""
+    cfg = configs.get("smollm-360m", quant_bits=BITS)
+    model = lm.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    per_call = lm.packed_projections(model)
+    b = M_DECODE
+    prompt = torch.randint(0, cfg.vocab, (b, PRIME_LEN), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    step = engine.make_jitted_serve_step(mesh, cfg)
+    states = lm.decode_state_init(cfg, b, SERVE_MAX_LEN, dev)
+    torch.cuda.synchronize()
+    alloc0, reserved0 = torch.cuda.memory_allocated(), \
+        torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    logits, states = step(model, prompt[:, :1], states, 0)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    alloc, reserved = (torch.cuda.memory_allocated() - alloc0,
+                       torch.cuda.memory_reserved() - reserved0)
+    graph = next(iter(step.graphs.values()))
+    prime = [logits]
+    for t in range(1, PRIME_LEN):
+        logits, states = step(model, prompt[:, t:t + 1], states, t)
+        prime.append(logits)
+    eager_states = _snapshot(states)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+
+    # ---- the main path, counted: replays of the captured step ----
+    bpm.launches = 0
+    replayed, times = [], []
+    for i in range(REPLAY_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, states = step(model, tok, states, PRIME_LEN + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        replayed.append((tok, logits, _snapshot(states)))
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    launched = bpm.launches
+    # ---- end of the counted main path ----
+
+    eager_times = []
+    for i, (tk, want, snap) in enumerate(replayed):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got, eager_states = lm.decode_step(model, tk, eager_states,
+                                           PRIME_LEN + i)
+        torch.cuda.synchronize()
+        eager_times.append(time.perf_counter() - t1)
+        if not torch.equal(got, want):
+            fail(f"18c step {i}: eager logits differ from the replay's by "
+                 f"{float((got.float() - want.float()).abs().max()):.3e}")
+        for j, (st, sn) in enumerate(zip(eager_states, snap)):
+            for k in st:
+                if not torch.equal(st[k], sn[k]):
+                    fail(f"18c step {i}: layer {j} state {k!r} differs "
+                         "from the replay's")
+    rep_ms = 1e3 * sorted(times)[len(times) // 2]
+    eag_ms = 1e3 * sorted(eager_times)[len(eager_times) // 2]
+    print(f"[18c capture] {cfg.name}, {cfg.n_layers} layers, bf16, {BITS}-"
+          f"bit planes, batch {b}, max_len {SERVE_MAX_LEN}: first call "
+          f"(warm-up on copies, capture, replay) {capture_s:.3f} s; the "
+          f"graph holds {graph.launches} bit-plane launches (packed "
+          f"projections {per_call}); memory above the states after it: "
+          f"{alloc / 1e6:.2f} MB allocated, {reserved / 1e6:.2f} MB "
+          f"reserved (the graph's pool and the warm-up's cached blocks)")
+    print(f"[18c replay] {REPLAY_STEPS} replayed steps equal to "
+          f"{REPLAY_STEPS} eager lm.decode_steps from a copy of the primed "
+          f"state: logits and all {sum(len(st) for st in eager_states)} "
+          f"state tensors torch.equal at every step")
+    print(f"[18c time] a decode step: replayed {rep_ms:.3f} ms, eager "
+          f"{eag_ms:.3f} ms (medians of {REPLAY_STEPS}, same call; "
+          f"replayed {min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}, eager "
+          f"{min(eager_times) * 1e3:.3f}-{max(eager_times) * 1e3:.3f}); "
+          f"{smi}")
+    print(f"[18c launches] bit-plane kernel launches in the {REPLAY_STEPS} "
+          f"replays: {launched} (expected {per_call} x {REPLAY_STEPS} = "
+          f"{per_call * REPLAY_STEPS})")
+    if graph.launches != per_call or launched != per_call * REPLAY_STEPS:
+        fail("18c the replays did not count one launch a packed projection")
+    pos = [PRIME_LEN + REPLAY_STEPS]
+
+    def replays():
+        nonlocal tok, states
+        for _ in range(4):
+            lg, states = step(model, tok, states, pos[0])
+            pos[0] += 1
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+    profile_decode(replays, 4, rep_ms / 1e3, tag="18c profile")
+
+    # a second states list: its own storages, its own graph
+    other = lm.decode_state_init(cfg, b, SERVE_MAX_LEN, dev)
+    for t in range(PRIME_LEN):
+        logits, other = step(model, prompt[:, t:t + 1], other, t)
+        if not torch.equal(logits, prime[t]):
+            fail(f"18c a second states list gave other logits at step {t}")
+    print(f"[18c states] a second states list: {len(step.graphs)} graphs "
+          f"captured; its {PRIME_LEN} prompt steps give the first list's "
+          "logits, torch.equal")
+    if len(step.graphs) != 2:
+        fail(f"18c {len(step.graphs)} graphs for two states lists")
+    del step, states, other, eager_states, replayed, model
+    torch.cuda.empty_cache()
+    return launched, rep_ms, eag_ms
+
+
+def phase_jitted_train(mesh, dev):
+    """(d) `make_jitted_train_step` on the (1, 1) mesh against
+    `train_step`, full SmolLM-360M in f32 at 1 x 128 tokens, 2 steps from
+    one seeded state under deterministic algorithms (phase 17c's mode):
+    params, moments, step and losses bit for bit equal."""
+    tr = _Training()
+    cfg = tr.configs.get("smollm-360m", dtype="float32")
+    tcfg = tr.step.TrainConfig(adamw=tr.opt.AdamWConfig(lr=1e-3,
+                                                        warmup_steps=0))
+    data = tr.data(cfg, batch=1, seq=CHECK_SEQ)
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    try:
+        a = tr.step.init_state(torch.Generator(device=dev).manual_seed(0),
+                               cfg, tcfg, dev)
+        b = copy.deepcopy(a)
+        fn = tr.step.make_jitted_train_step(mesh, cfg, tcfg)
+        losses = []
+        for i in range(2):
+            batch = data.batch_at(i)
+            a, ma = fn(a, batch)
+            b, mb = tr.step.train_step(b, batch, cfg, tcfg)
+            losses.append((float(ma["loss"]), float(mb["loss"])))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ta, tb = dict(tr.manager.leaves(a)), dict(tr.manager.leaves(b))
+    differ = [k for k in ta if not torch.equal(ta[k], tb[k])]
+    print(f"[18d train] make_jitted_train_step on the (1, 1) mesh against "
+          f"train_step, {cfg.name} f32, 1 x {CHECK_SEQ}, 2 steps, "
+          f"deterministic: losses {losses}; {len(ta) - len(differ)} of "
+          f"{len(ta)} tensors bit for bit equal; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if differ or any(x != y for x, y in losses):
+        fail(f"18d {len(differ)} tensors differ (first "
+             f"{differ[:1]}), losses {losses}")
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def phase_collectives(dev):
+    """(e) `compress_psum` and `pipelined_apply` on the one-rank NCCL
+    group: the all-reduced average equals `_dq8` of its own quantisation
+    exactly (one rank sums nothing), the error is what that leaves; one
+    stage equals the sequential stack."""
+    import torch.distributed as dist
+    from repro_torch.parallel import compression, pipeline as pp
+    gen = torch.Generator(device=dev).manual_seed(18)
+    g = torch.randn(960 * 2560 + 7, generator=gen, device=dev)
+    avg, err = compression.compress_psum(g, torch.zeros_like(g))
+    want = compression._dq8(*compression._q8(g), g.shape)
+    torch.cuda.synchronize()
+    ok_c = torch.equal(avg, want) and torch.equal(err, g - want)
+    w = torch.randn((1, 64, 64), generator=gen, device=dev) / 8
+    x = torch.randn((8, 2, 64), generator=gen, device=dev)
+    y = pp.pipelined_apply(lambda wi, h: torch.tanh(h @ wi))(w, x)
+    ok_p = torch.equal(y, torch.tanh(x @ w[0]))
+    leaf = {"g": g}
+    print(f"[18e collectives] compress_psum over {dist.get_world_size()} "
+          f"NCCL rank of a {g.numel()}-value leaf equal to _dq8(_q8(g)): "
+          f"{ok_c} (wire bytes {compression.wire_bytes(leaf, True)} "
+          f"against {compression.wire_bytes(leaf, False)}); "
+          f"pipelined_apply, 1 stage x 8 microbatches, equal to the "
+          f"stack: {ok_p}")
+    if not (ok_c and ok_p):
+        fail("18e the collectives on one rank")
+
+
+def phase_exact_product(bpm, bitplane, dev, smi):
+    """(f) #1 and torch.matmul against the f64 product of their own
+    operands (bf16 x; #1's integer weights and f32 scale, the matmul's
+    dequantised bf16 weight), at PaliGemma's prefix projections (M =
+    1,056) and Whisper's cross K/V (M = 6,144): each one's largest gap
+    relative to the largest |y|, with y in f32 (the order of the f32
+    sums: #1 against torch.matmul in f32 on the same bf16 values, TF32
+    off, and against bf16 torch.mm with f32 y, on the tensor cores) and
+    in bf16 (the main path's output: #1 against bf16 torch.matmul).  #1
+    further from exact than the matmul by more than 2x is a fault of
+    #1."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    shapes = [(PREFIX_M, k, n) for k, n in NEW_FAMILY_SHAPES["paligemma-3b"]]
+    shapes.append(CROSS_KV)
+    worst = []
+    for m, k, n in shapes:
+        w = torch.randn((k, n), generator=gen, device=dev) / math.sqrt(k)
+        planes, scale = bitplane.quantize_pack(w, BITS, axis=0)
+        q = bitplane.unpack(planes, BITS, axis=0)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        exact = (x.double() @ q.double()) * scale.double()
+        wb = (q.float() * scale).to(torch.bfloat16)
+        exact_mm = x.double() @ wb.double()
+        ys = (bpm.bitplane_matmul(x, planes, scale, bits=BITS),
+              x.float() @ wb.float(),
+              torch.mm(x, wb, out_dtype=torch.float32),
+              bpm.bitplane_matmul(x, planes, scale, bits=BITS,
+                                  out_dtype=torch.bfloat16),
+              x @ wb)
+        row = [float((y.double() - ref).abs().max() / ref.abs().max())
+               for y, ref in zip(ys, (exact, exact_mm, exact_mm, exact,
+                                      exact_mm))]
+        worst.append(row)
+        print(f"[18f exact] M={m} K={k} N={n}: largest gap / largest |y|, "
+              f"f32 y: #1 {row[0]:.3e}, torch.matmul f32 (CUDA cores) "
+              f"{row[1]:.3e}, torch.mm bf16 to f32 (tensor cores) "
+              f"{row[2]:.3e}; bf16 y: #1 {row[3]:.3e}, torch.matmul bf16 "
+              f"{row[4]:.3e}")
+    ratios = [max(r[0] / r[1] for r in worst), max(r[0] / r[2] for r in worst),
+              max(r[3] / r[4] for r in worst)]
+    print(f"[18f exact] #1's gap over the library call's, at most: "
+          f"{ratios[0]:.2f}x f32 torch.matmul's, {ratios[1]:.2f}x bf16 "
+          f"torch.mm's with f32 y, {ratios[2]:.2f}x bf16 torch.matmul's "
+          f"with bf16 y (a fault of #1 above 2x); {smi}")
+    return ratios
+
+
+def phase_distribution(bpm, cs, dev, smi):
+    """Phase 18: the quickstart, the host mesh, the captured decode step,
+    the compiled train step and the collectives on one card, then #1
+    against the exact product.  Returns the kernels' launches on its
+    main paths (18a and 18c)."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.models import lm
+    from repro_torch.quant import bitplane
+    from repro_torch.serve import engine
+    t0 = time.perf_counter()
+    quick = phase_quickstart(bpm, cs)
+    mesh = phase_host_mesh()
+    try:
+        served, rep_ms, eag_ms = phase_captured_serve(
+            bpm, configs, lm, engine, mesh, dev, smi)
+        phase_jitted_train(mesh, dev)
+        phase_collectives(dev)
+    finally:
+        dist.destroy_process_group()
+    phase_exact_product(bpm, bitplane, dev, smi)
+    print(f"[18 distribution] phase 18 took {time.perf_counter() - t0:.1f} "
+          f"s; bit-plane launches: 18a {quick['bitplane_matmul']}, 18c "
+          f"{served}; step kernel launches: 18a {quick['comefa_step']}")
+    return {"bitplane_matmul": quick["bitplane_matmul"] + served,
+            "comefa_step": quick["comefa_step"]}
+
+
+
+
 def main():
     sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
@@ -3044,16 +3409,19 @@ def main():
     print(f"[16 families] bit-plane kernel launches: phase 4 {launched}, "
           f"phase 15 {family_launched}, phase 16 {new_launched}")
     phase_train(bpm, cs, ks, dev, smi)
+    dist_launched = phase_distribution(bpm, cs, dev, smi)
     record = {"kernels": [
         {"name": "bitplane_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
          "replaces": "src/repro/kernels/bitplane_matmul.py:69",
-         "launches": launched + family_launched + new_launched,
+         "launches": launched + family_launched + new_launched
+         + dist_launched["bitplane_matmul"],
          "max_abs_err": max(worst, family_err, new_err), **layer},
         {"name": "comefa_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/comefa_step.cu",
          "replaces": "src/repro/kernels/comefa_step.py:80",
-         "launches": step_launched + eval_launched,
+         "launches": step_launched + eval_launched
+         + dist_launched["comefa_step"],
          "max_abs_err": step_err, **timing}]}
     for name, (source, replaces) in BITSERIAL_KERNELS.items():
         record["kernels"].append({

@@ -14,7 +14,7 @@ the model's device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -86,3 +86,11 @@ class SyntheticLM:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def input_sharding(mesh, rules: Optional[dict] = None):
+    """The batch's `DTensor` placements on `mesh`: tokens and labels
+    sharded along the batch by the ``batch`` rule."""
+    from ..parallel import sharding as shd
+    return shd.shardings(mesh, shd.tree_specs(
+        {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}, rules))

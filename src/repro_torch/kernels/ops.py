@@ -18,6 +18,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..quant import bitplane
 from . import bit_transpose as _bt
@@ -36,8 +38,11 @@ def bitplane_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     registers, and an f32 or bf16 `out_dtype` is the kernel's own rounding:
     one launch, no cast around it.  Other float types are cast to f32
     first and the f32 result to `out_dtype` after.  Where it runs follows
-    `x.device` (see `kernels.bitplane_matmul`).
+    `x.device` (see `kernels.bitplane_matmul`).  Placed planes (a
+    `DTensor`) run the kernel on each rank's shards (`_placed`).
     """
+    if isinstance(w_packed, DTensor):
+        return _placed(x, w_packed, scale, bits, out_dtype)
     if x.dtype not in _bpm.DTYPES:
         x = x.to(torch.float32)
     direct = out_dtype in _bpm.DTYPES
@@ -45,6 +50,48 @@ def bitplane_matmul(x: torch.Tensor, w_packed: torch.Tensor,
                              scale.contiguous(), bits=bits,
                              out_dtype=out_dtype if direct else torch.float32)
     return y if direct else y.to(out_dtype)
+
+
+def _is_shard(p, dim: int) -> bool:
+    return isinstance(p, Shard) and p.dim == dim
+
+
+def _placed(x: torch.Tensor, w_packed: DTensor, scale: torch.Tensor,
+            bits: int, out_dtype: torch.dtype) -> DTensor:
+    """`bitplane_matmul` on placed planes [bits, K/32, N]: each rank runs
+    the kernel (its plain version on the CPU) on its own shards, through
+    `local_map`.  On a mesh dim where the planes are sharded on N, x is
+    replicated and y comes back ``Shard(1)``; where they are sharded on
+    K/32, x is sharded on K alike and y is ``Partial()`` (each rank's sum
+    over its slice of K); elsewhere x's rows keep their sharding."""
+    mesh = w_packed.device_mesh
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    x_in, y_out, s_in = [], [], []
+    for p, xp in zip(w_packed.placements, x.placements):
+        if _is_shard(p, 1):
+            x_in.append(Shard(1))
+            y_out.append(Partial())
+            s_in.append(Replicate())
+        elif _is_shard(p, 2):
+            x_in.append(Replicate())
+            y_out.append(Shard(1))
+            s_in.append(Shard(1))
+        else:
+            keep = xp if _is_shard(xp, 0) else Replicate()
+            x_in.append(keep)
+            y_out.append(keep)
+            s_in.append(Replicate())
+
+    def local(xl, wl, sl):
+        return bitplane_matmul(xl.contiguous(), wl, sl, bits=bits,
+                               out_dtype=out_dtype)
+    return local_map(local, out_placements=y_out,
+                     in_placements=(tuple(x_in), tuple(w_packed.placements),
+                                    tuple(s_in)),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         x, w_packed, scale)
 
 
 def bitserial_matmul(x_packed: torch.Tensor, w_packed: torch.Tensor,

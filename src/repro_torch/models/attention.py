@@ -12,6 +12,8 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from ..parallel import sharding as shd
+from ..parallel.sharding import constrain
 from . import common as cm
 from .common import Config
 
@@ -34,6 +36,21 @@ class Attention(nn.Module):
         if cfg.qk_norm:
             self.qn = cm.RMSNorm(cfg.hd, dev)
             self.kn = cm.RMSNorm(cfg.hd, dev)
+
+
+def specs(cfg: Config) -> dict:
+    """Logical axes of `Attention`'s leaves (the JAX `attention.specs`)."""
+    qz = cfg.quant_bits is not None
+    s = {
+        "wq": cm._dense_specs("embed", "heads", cfg, qz),
+        "wk": cm._dense_specs("embed", "kv_heads", cfg, qz),
+        "wv": cm._dense_specs("embed", "kv_heads", cfg, qz),
+        "wo": cm._dense_specs("heads", "embed", cfg, qz),
+    }
+    if cfg.qk_norm:
+        s["qn"] = {"g": (None,)}
+        s["kn"] = {"g": (None,)}
+    return s
 
 
 def _split_heads(x, n, hd):
@@ -152,6 +169,7 @@ def apply(params: Attention, x: torch.Tensor, cfg: Config, *,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _qkv(params, x, cfg, positions)
+    q = constrain(q, ("batch", "seq", "heads", None))
     if s > DENSE_MAX_SEQ:
         out = _attn_chunked(q, k, v, cfg, kind=kind, prefix_len=prefix_len)
     else:
@@ -163,6 +181,7 @@ def apply(params: Attention, x: torch.Tensor, cfg: Config, *,
         else:
             mask = causal_mask(s, x.device, prefix_len=prefix_len)
         out = _sdpa(q, k, v, mask, cfg)
+    out = constrain(out, ("batch", "seq", "heads", None))
     return cm.linear(params.wo, out.reshape(b, s, -1))
 
 
@@ -196,6 +215,13 @@ def init_cache(cfg: Config, batch: int, max_len: int, dev,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def cache_specs(kind: str) -> Dict[str, tuple]:
+    """A cache's logical axes: its T axis is the ``cache_seq`` rule's
+    (sharded over ``model`` by default, flash-decoding style)."""
+    ax = ("batch", "cache_seq", "kv_heads", None)
+    return {"k": ax, "v": ax}
+
+
 def positions(index, batch: int, dev) -> torch.Tensor:
     """A scalar or [B] `index` as a [B] long tensor on `dev`; a Python int
     is filled in on the device, with no copy from the host."""
@@ -215,8 +241,8 @@ def decode_step(params: Attention, x: torch.Tensor,
     its own position).  Row i writes its own cache slot (``index % T`` in
     a local layer's ring) and attends over the slots up to its own index,
     so every slot of a ring is valid once it has wrapped.  Unlike the JAX
-    function, the cache is updated in place (and returned), which saves a
-    copy per step.
+    function, the cache is updated in place (and returned), which saves
+    a copy per step (a placed cache shard by shard: `sharding.set_rows`).
     """
     b = x.shape[0]
     t = cache["k"].shape[1]
@@ -224,9 +250,8 @@ def decode_step(params: Attention, x: torch.Tensor,
     q, k_new, v_new = _qkv(params, x, cfg, idx[:, None])
     slot = idx % t if kind == "local" else idx
     rows = torch.arange(b, device=x.device)
-    k, v = cache["k"], cache["v"]
-    k[rows, slot] = k_new[:, 0].to(k.dtype)
-    v[rows, slot] = v_new[:, 0].to(v.dtype)
+    k = shd.set_rows(cache["k"], rows, slot, k_new[:, 0])
+    v = shd.set_rows(cache["v"], rows, slot, v_new[:, 0])
     valid = torch.arange(t, device=x.device)[None, None, :] <= \
         idx[:, None, None]
     out = _sdpa(q, k, v, valid, cfg)

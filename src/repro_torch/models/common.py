@@ -153,6 +153,17 @@ class PackedLinear(nn.Module):
         self.register_buffer("scale", scale)
 
 
+def _dense_specs(in_axis: Optional[str], out_axis: Optional[str],
+                 cfg: Config, quantize: bool) -> dict:
+    """Logical axes of one projection's leaves: packed planes
+    ``("bits", in, out)`` (K/32 along ``in``) and ``scale`` ``(None,
+    out)``, or a dense ``w`` ``(in, out)``."""
+    if quantize and cfg.quant_bits:
+        return {"packed": ("bits", in_axis, out_axis),
+                "scale": (None, out_axis)}
+    return {"w": (in_axis, out_axis)}
+
+
 def _init_dense(generator: torch.Generator, in_dim: int, out_dim: int,
                 cfg: Config, quantize: bool, dev) -> PackedLinear:
     std = 1.0 / math.sqrt(in_dim)
@@ -253,3 +264,7 @@ def embed_init(generator: torch.Generator, cfg: Config,
                dev) -> nn.ParameterDict:
     e = _normal(generator, (cfg.vocab, cfg.d_model), dev)
     return nn.ParameterDict({"e": _frozen((e * 0.02).to(cfg.adtype))})
+
+
+def embed_specs() -> dict:
+    return {"e": ("vocab", "embed")}

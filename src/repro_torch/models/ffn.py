@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.sharding import constrain
 from . import common as cm
 from .common import Config
 
@@ -36,9 +37,20 @@ class MLP(nn.Module):
         self.wo = cm._init_dense(generator, d_ff, cfg.d_model, cfg, qz, dev)
 
 
+def mlp_specs(cfg: Config) -> dict:
+    """Logical axes of `MLP`'s leaves (the JAX `ffn.mlp_specs`)."""
+    qz = cfg.quant_bits is not None
+    return {
+        "wi": cm._dense_specs("embed", "mlp", cfg, qz),
+        "wg": cm._dense_specs("embed", "mlp", cfg, qz),
+        "wo": cm._dense_specs("mlp", "embed", cfg, qz),
+    }
+
+
 def mlp_apply(params: MLP, x: torch.Tensor, cfg: Config) -> torch.Tensor:
     act = cm.activation(cfg.act)
     h = act(cm.linear(params.wg, x)) * cm.linear(params.wi, x)
+    h = constrain(h, ("batch", "seq", "mlp"))
     return cm.linear(params.wo, h)
 
 
@@ -68,6 +80,16 @@ class MoE(nn.Module):
                            cfg.adtype, dev)
         self.wo = _experts(generator, e, f, d, 1.0 / math.sqrt(f),
                            cfg.adtype, dev)
+
+
+def moe_specs(cfg: Config) -> dict:
+    """Logical axes of `MoE`'s leaves (the JAX `ffn.moe_specs`)."""
+    return {
+        "router": {"w": ("embed", None)},
+        "wi": ("expert", "embed", "expert_mlp"),
+        "wg": ("expert", "embed", "expert_mlp"),
+        "wo": ("expert", "expert_mlp", "embed"),
+    }
 
 
 def route(router_w: torch.Tensor, xg: torch.Tensor, cfg: Config,
@@ -101,7 +123,7 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: Config
     t = tokens.shape[0]
     g = cfg.moe_group if t % cfg.moe_group == 0 else t   # fallback: 1 group
     n = t // g
-    xg = tokens.reshape(n, g, d)
+    xg = constrain(tokens.reshape(n, g, d), ("batch", None, "embed"))
     capacity = int(g * cfg.top_k * cfg.capacity_factor / e) + 1
     probs, gates, expert_idx, pos, keep = route(params.router["w"], xg, cfg,
                                                 capacity)
@@ -116,12 +138,19 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: Config
 
     # expert products over every expert's slots: [e, n*c, d] batches
     xe = torch.einsum("ngec,ngd->necd", disp, xg)
+    xe = constrain(xe, ("moe_tokens", "expert", None, None))
     xe = xe.transpose(0, 1).reshape(e, n * capacity, d)
     act = cm.activation(cfg.act)
     h = act(torch.matmul(xe, params.wg.to(x.dtype))) * \
         torch.matmul(xe, params.wi.to(x.dtype))
+    h = constrain(h.reshape(e, n, capacity, -1).transpose(0, 1),
+                  ("moe_tokens", "expert", None, "expert_mlp"))
+    h = h.transpose(0, 1).reshape(e, n * capacity, -1)
     ye = torch.matmul(h, params.wo.to(x.dtype))          # [e, n*c, d]
     ye = ye.reshape(e, n, capacity, d).transpose(0, 1)  # [n, e, c, d]
+    # placed: the expert sums (Partial over "model") are reduced here, as
+    # `DTensor`'s einsum cannot flatten an unevenly sharded capacity dim
+    ye = constrain(ye, ("moe_tokens", "expert", None, None))
     y = torch.einsum("ngec,necd->ngd", comb, ye)
     out = y.reshape(b, s, d)
 

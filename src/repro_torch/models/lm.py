@@ -21,6 +21,16 @@ Decode threads one state dict per layer through the stack (a KV cache
 for attention, the recurrent state otherwise); the states are updated in
 place.
 
+The spec functions (`layer_specs`, `stack_specs`, `specs`,
+`layer_state_specs`, `stack_state_specs`, `decode_state_specs`) give
+each leaf's logical axes, as the JAX ones do (`parallel.sharding` maps
+them to a mesh).  `specs` is keyed by the port's state-dict names, the
+layout `repro_torch.convert` documents, and `decode_state_specs` mirrors
+`decode_state_init` (one dict a layer).  The port stores every layer
+apart, so the stacked layout's leading ``"layers"`` axis has no leaf and
+is dropped; its rule is None (replicated), so dropping it changes no
+placement.
+
 Params are created without gradients, so serving builds no autograd
 graph; `trainable` turns gradients on for a model that is to be trained
 (`repro_torch.train.step` does), and `loss_fn` is the training loss.
@@ -34,6 +44,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from ..parallel.sharding import constrain
 from . import attention as attn
 from . import common as cm
 from . import ffn as ffn_mod
@@ -87,6 +98,34 @@ class Layer(nn.Module):
             self.ffn_dense = ffn_mod.MLP(cfg, generator, dev)
 
 
+def layer_specs(cfg: Config, kinds: Tuple[str, str]) -> dict:
+    """Logical axes of one `Layer`'s leaves, nested as its modules."""
+    mixer, f = kinds
+    s: dict = {"n1": {"g": (None,)}}
+    if mixer in _ATTENTION:
+        s["mix"] = attn.specs(cfg)
+    elif mixer == "cross_global":
+        s["mix"] = attn.specs(cfg)
+        s["cross"] = attn.specs(cfg)
+        s["nc"] = {"g": (None,)}
+    elif mixer == "mlstm":
+        s["mix"] = rec.mlstm_specs(cfg)
+    elif mixer == "slstm":
+        s["mix"] = rec.slstm_specs(cfg)
+    elif mixer == "rglru":
+        s["mix"] = rec.rglru_specs(cfg)
+    if f != "none":
+        s["n2"] = {"g": (None,)}
+    if f == "mlp":
+        s["ffn"] = ffn_mod.mlp_specs(cfg)
+    elif f == "moe":
+        s["ffn"] = ffn_mod.moe_specs(cfg)
+    elif f == "moe_dense":
+        s["ffn"] = ffn_mod.moe_specs(cfg)
+        s["ffn_dense"] = ffn_mod.mlp_specs(cfg)
+    return s
+
+
 def _ffn_block(p: Layer, x, cfg: Config):
     """x plus the layer's ffn of norm(x), and the MoE's aux loss (None
     for a layer without an MoE)."""
@@ -119,7 +158,8 @@ def layer_apply(p: Layer, x, cfg: Config, *, ctx=None, prefix_len: int = 0):
         y = rec.slstm_apply(p.mix, h, cfg)
     else:
         y = rec.rglru_apply(p.mix, h, cfg)
-    return _ffn_block(p, x + y, cfg)
+    x = constrain(x + y, ("batch", "seq", "embed"))
+    return _ffn_block(p, x, cfg)
 
 
 def _layer_run(p: Layer, x, cfg: Config, *, ctx=None, prefix_len: int = 0):
@@ -151,6 +191,19 @@ def layer_state_init(cfg: Config, batch: int, max_len: int, kinds,
     raise ValueError(f"no decode state for mixer kind {mixer!r}")
 
 
+def layer_state_specs(cfg: Config, kinds) -> Dict[str, tuple]:
+    mixer = kinds[0]
+    if mixer in _CACHED:
+        return attn.cache_specs("local" if mixer == "local" else "global")
+    if mixer == "mlstm":
+        return rec.mlstm_state_specs()
+    if mixer == "slstm":
+        return rec.slstm_state_specs()
+    if mixer == "rglru":
+        return rec.rglru_state_specs()
+    raise ValueError(f"no decode state for mixer kind {mixer!r}")
+
+
 def layer_decode(p: Layer, x, state, index, cfg: Config, *, ctx=None):
     """One layer, one token: a ``cross_global`` layer attends over its
     own KV cache, then recomputes cross-attention from `ctx`."""
@@ -175,6 +228,24 @@ def layer_decode(p: Layer, x, state, index, cfg: Config, *, ctx=None):
         raise ValueError(f"mixer kind {mixer!r} does not decode")
     x, _ = _ffn_block(p, x + y, cfg)
     return x, state
+
+
+# ---------------------------------------------------------------------------
+# stacks: one entry a layer, in the order they apply
+# ---------------------------------------------------------------------------
+
+def stack_specs(cfg: Config, n_layers: Optional[int] = None,
+                pattern=None) -> List[dict]:
+    """`layer_specs` of every layer of a stack (default: the decoder's),
+    in the order of `nn.ModuleList` ``stack``; no ``"layers"`` axis."""
+    return [layer_specs(cfg, kinds)
+            for kinds in cfg.layer_kinds(n_layers or None, pattern)]
+
+
+def stack_state_specs(cfg: Config, n_layers: Optional[int] = None,
+                      pattern=None) -> List[Dict[str, tuple]]:
+    return [layer_state_specs(cfg, kinds)
+            for kinds in cfg.layer_kinds(n_layers or None, pattern)]
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +286,31 @@ def init(generator: torch.Generator, cfg: Config, device="cuda") -> LM:
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
     return LM(cfg, generator, dev)
+
+
+def _flat(tree: dict, prefix: str) -> Dict[str, tuple]:
+    out = {}
+    for k, v in (enumerate(tree) if isinstance(tree, list)
+                 else tree.items()):
+        name = f"{prefix}.{k}"
+        out.update({name: v} if isinstance(v, tuple) else _flat(v, name))
+    return out
+
+
+def specs(cfg: Config) -> Dict[str, tuple]:
+    """Logical axes of every param and buffer of `LM`, keyed by its
+    state-dict name (``embed.e``, ``stack.<j>.mix.wq.packed``, ``nf.g``,
+    ``head.w``, ``enc_stack.<j>....``, ``enc_nf.g``)."""
+    s = {**_flat(cm.embed_specs(), "embed"),
+         **_flat(stack_specs(cfg), "stack"), "nf.g": (None,)}
+    if not cfg.tie_embeddings:
+        s.update(_flat(cm._dense_specs("embed", "vocab", cfg, False),
+                       "head"))
+    if cfg.family == "encdec":
+        s.update(_flat(stack_specs(cfg, cfg.enc_layers, cfg.enc_pattern),
+                       "enc_stack"))
+        s["enc_nf.g"] = (None,)
+    return s
 
 
 def trainable(params: LM) -> Dict[str, nn.Parameter]:
@@ -266,6 +362,7 @@ def _logits(params: LM, x, cfg: Config):
             params.embed["e"].to(torch.float32).T
     else:
         logits = cm.linear(params.head, xf).to(torch.float32)
+    logits = constrain(logits, ("batch", "seq", "vocab"))
     return cm.softcap(logits, cfg.final_softcap)
 
 
@@ -304,6 +401,7 @@ def forward(params: LM, tokens, *, enc_inputs=None, prefix_embeddings=None,
         prefix_len = prefix_embeddings.shape[1]
     if cfg.family == "encdec":
         ctx = encode(params, enc_inputs)
+    x = constrain(x, ("batch", "seq", "embed"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params.stack:
         x, a = _layer_run(layer, x, cfg, ctx=ctx,
@@ -348,12 +446,18 @@ def decode_state_init(cfg: Config, batch: int, max_len: int,
             for kinds in cfg.layer_kinds()]
 
 
+def decode_state_specs(cfg: Config) -> List[Dict[str, tuple]]:
+    """Logical axes of `decode_state_init`'s states, one dict a layer."""
+    return stack_state_specs(cfg)
+
+
 def decode_step(params: LM, token, states: State, index, *,
                 ctx: Optional[torch.Tensor] = None):
     """One decode step: token [B, 1] -> (logits [B, 1, V], states).
 
     `index` is a scalar or a [B] vector of positions; `states` is
-    updated in place and returned.  An encoder-decoder takes `ctx`, the
+    updated in place and returned (placed states: each layer's dict
+    takes its new tensors).  An encoder-decoder takes `ctx`, the
     output of `encode`.
     """
     cfg = params.cfg

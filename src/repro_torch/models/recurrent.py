@@ -32,6 +32,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel import sharding as shd
+from ..parallel.sharding import constrain
 from . import common as cm
 from .common import Config
 
@@ -53,8 +55,10 @@ def _gate(generator, d, h, bias, dev) -> nn.ParameterDict:
 
 
 def _update(state: State, new: State) -> State:
+    """Write `new` into `state`, in place (placed states shard by shard,
+    `sharding.like`)."""
     for name, t in new.items():
-        state[name].copy_(t)
+        state[name].copy_(shd.like(t, state[name]))
     return state
 
 
@@ -76,6 +80,20 @@ class MLSTM(nn.Module):
         self.wf = _gate(generator, d, h, 3.0, dev)
         self.wi = _gate(generator, d, h, 0.0, dev)
         self.gn = cm.RMSNorm(hd, dev)
+
+
+def mlstm_specs(cfg: Config) -> dict:
+    """Logical axes of `MLSTM`'s leaves (the JAX `mlstm_specs`)."""
+    qz = cfg.quant_bits is not None
+    return {
+        "wq": cm._dense_specs("embed", "heads", cfg, qz),
+        "wk": cm._dense_specs("embed", "heads", cfg, qz),
+        "wv": cm._dense_specs("embed", "heads", cfg, qz),
+        "wo": cm._dense_specs("heads", "embed", cfg, qz),
+        "wf": {"w": ("embed", None), "b": (None,)},
+        "wi": {"w": ("embed", None), "b": (None,)},
+        "gn": {"g": (None,)},
+    }
 
 
 def _mlstm_gates(params: MLSTM, x):
@@ -153,6 +171,7 @@ def mlstm_apply(params: MLSTM, x: torch.Tensor, cfg: Config) -> torch.Tensor:
     denom = torch.maximum(den.abs(), torch.exp(-m_tot))[..., None]
     out = (num / denom).reshape(b, s, h, hd)
     out = cm.rmsnorm(params.gn, out.to(x.dtype), cfg.norm_eps)
+    out = constrain(out, ("batch", "seq", "heads", None))
     return cm.linear(params.wo, out.reshape(b, s, -1))
 
 
@@ -162,6 +181,11 @@ def mlstm_state_init(cfg: Config, batch: int, dev) -> State:
                              device=dev),
             "m": torch.full((batch, h), -1e30, dtype=torch.float32,
                             device=dev)}
+
+
+def mlstm_state_specs() -> Dict[str, tuple]:
+    return {"S": ("batch", "heads", None, None),
+            "m": ("batch", "heads")}
 
 
 def mlstm_decode(params: MLSTM, x: torch.Tensor, state: State, cfg: Config):
@@ -210,6 +234,18 @@ class SLSTM(nn.Module):
         self.gn = cm.RMSNorm(hd, dev)
 
 
+def slstm_specs(cfg: Config) -> dict:
+    """Logical axes of `SLSTM`'s leaves (the JAX `slstm_specs`)."""
+    qz = cfg.quant_bits is not None
+    return {
+        "wx": cm._dense_specs("embed", "heads", cfg, qz),
+        "r": ("heads", None, None),
+        "b": ("heads",),
+        "wo": cm._dense_specs("heads", "embed", cfg, qz),
+        "gn": {"g": (None,)},
+    }
+
+
 def slstm_apply(params: SLSTM, x: torch.Tensor, cfg: Config,
                 state: Optional[State] = None, return_state: bool = False):
     """Sequential sLSTM over x [B, S, D].  With `return_state` the final
@@ -256,6 +292,11 @@ def slstm_state_init(cfg: Config, batch: int, dev) -> State:
     return {"c": zeros(), "n": zeros(), "h": zeros(), "m": zeros() - 10.0}
 
 
+def slstm_state_specs() -> Dict[str, tuple]:
+    ax = ("batch", "heads", None)
+    return {"c": ax, "n": ax, "h": ax, "m": ax}
+
+
 # ---------------------------------------------------------------------------
 # RG-LRU (Griffin / RecurrentGemma)
 # ---------------------------------------------------------------------------
@@ -285,6 +326,19 @@ class RGLRU(nn.Module):
                        dtype=torch.float32) * (0.999 - 0.9) + 0.9
         self.lam = cm._frozen(torch.log(torch.exp(-torch.log(u) * 8.0) - 1.0))
         self.wo = cm._init_dense(generator, w, d, cfg, qz, dev)
+
+
+def rglru_specs(cfg: Config) -> dict:
+    """Logical axes of `RGLRU`'s leaves (the JAX `rglru_specs`)."""
+    qz = cfg.quant_bits is not None
+    return {
+        "wx": cm._dense_specs("embed", "state", cfg, qz),
+        "conv": ("conv", "state"),
+        "wr": {"w": ("state", None)},
+        "wi": {"w": ("state", None)},
+        "lam": ("state",),
+        "wo": cm._dense_specs("state", "embed", cfg, qz),
+    }
 
 
 def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -328,7 +382,7 @@ def rglru_apply(params: RGLRU, x: torch.Tensor, cfg: Config,
                 state: Optional[State] = None, return_state: bool = False):
     """Full-sequence RG-LRU block: conv1d -> gated LRU -> out projection."""
     b, s, d = x.shape
-    u = cm.linear(params.wx, x)                           # [B, S, W]
+    u = constrain(cm.linear(params.wx, x), ("batch", "seq", "state"))
     cw = params.conv.shape[0]
     pads = F.pad(u, (0, 0, cw - 1, 0))
     conv = _conv_taps(pads, params.conv, s)
@@ -346,6 +400,10 @@ def rglru_state_init(cfg: Config, batch: int, dev) -> State:
     return {"h": torch.zeros((batch, w), dtype=torch.float32, device=dev),
             "conv_tail": torch.zeros((batch, cfg.conv_width - 1, w),
                                      dtype=cfg.adtype, device=dev)}
+
+
+def rglru_state_specs() -> Dict[str, tuple]:
+    return {"h": ("batch", "state"), "conv_tail": ("batch", None, "state")}
 
 
 def rglru_decode(params: RGLRU, x: torch.Tensor, state: State, cfg: Config):

@@ -8,6 +8,10 @@ this feature attacks.
 Sampling at temperature > 0 draws from an explicit `torch.Generator`; it
 cannot reproduce `jax.random`, so only greedy tokens are comparable with
 the JAX package.
+
+`make_jitted_serve_step` is the compiled decode step: on a mesh of many
+ranks it runs on params and states placed by their specs (`DTensor`s);
+on one card it is one step captured as a CUDA graph and replayed.
 """
 from __future__ import annotations
 
@@ -18,8 +22,14 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
+
+from ..kernels import bitplane_matmul as bpm
+from ..models import attention as attn
 from ..models import common as cm
 from ..models import lm
+from ..parallel import sharding as shd
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 
@@ -258,3 +268,154 @@ def serve_continuous(params: lm.LM, requests: List[Request], *,
         stats["slot_steps"] = slot_steps
         stats["occupancy"] = slot_steps / (step * slots) if step else 0.0
     return [np.asarray(o, np.int32) for o in outputs]
+
+
+# ---------------------------------------------------------------------------
+# the compiled decode step
+# ---------------------------------------------------------------------------
+
+def _check_cfg(params: lm.LM, cfg: cm.Config) -> None:
+    if params.cfg != cfg:
+        raise ValueError(f"step built for {cfg.name}, called with "
+                         f"{params.cfg.name}")
+
+
+class _Captured:
+    """One captured decode step: its graph, the static token and
+    position buffers it reads, the logits it writes, and the bit-plane
+    kernel launches one replay makes."""
+
+    def __init__(self, params: lm.LM, token: torch.Tensor, states,
+                 index):
+        dev = params.device
+        self.params = params             # the graph reads its storages
+        self.token = torch.empty(tuple(token.shape), dtype=torch.long,
+                                 device=dev)
+        self.token.copy_(token)
+        self.pos = attn.positions(index, token.shape[0], dev).clone()
+        prev = cm.set_linear_hook(None)
+        try:
+            # warm up on copies of the states, on a side stream: builds
+            # the kernels and fills the lazy caches, and leaves the states
+            # as they were (a recurrent update must not run twice)
+            warm = [{k: v.clone() for k, v in st.items()} for st in states]
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                lm.decode_step(params, self.token, warm, self.pos)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            del warm
+            self.graph = torch.cuda.CUDAGraph()
+            before = bpm.launches
+            with torch.cuda.graph(self.graph):
+                self.logits, _ = lm.decode_step(params, self.token, states,
+                                                self.pos)
+            # the wrappers counted calls that were recorded, not launched
+            self.launches = bpm.launches - before
+            bpm.launches = before
+        finally:
+            cm.set_linear_hook(prev)
+
+    def __call__(self, token, index) -> torch.Tensor:
+        self.token.copy_(token)
+        if isinstance(index, torch.Tensor):
+            self.pos.copy_(index.expand(self.pos.shape[0]))
+        else:
+            self.pos.fill_(int(index))
+        self.graph.replay()
+        bpm.launches += self.launches
+        return self.logits.clone()
+
+
+class CapturedServeStep:
+    """`fn(params, token, states, index) -> (logits, states)` on one card:
+    the decode step captured as a CUDA graph the first time a set of
+    state storages is seen (with the params, the token's shape and the
+    kind of index), then replayed, the states updated in place (the
+    counterpart of ``donate_argnums``).  A position is copied into the
+    graph's own buffer before each replay, so it is not baked in; the
+    logits come back as a fresh tensor, and sampling stays outside.  The
+    packed-linear hook is host-side and never fires here, as JAX's
+    jitted calls never see it.  Each replay adds the kernel launches it
+    makes to `kernels.bitplane_matmul.launches`, as the wrapper would.
+    A capture that fails raises; there is no eager fallback."""
+
+    def __init__(self, cfg: cm.Config):
+        self.cfg = cfg
+        self.graphs: Dict[tuple, _Captured] = {}
+
+    def __call__(self, params: lm.LM, token, states, index):
+        _check_cfg(params, self.cfg)
+        token = torch.as_tensor(token)
+        key = (id(params), params.embed["e"].data_ptr(), tuple(token.shape),
+               isinstance(index, torch.Tensor),
+               tuple(t.data_ptr() for st in states for t in st.values()))
+        step = self.graphs.get(key)
+        if step is None:
+            step = self.graphs[key] = _Captured(params, token, states, index)
+        return step(token, index), states
+
+
+def _placed_step(mesh, cfg: cm.Config, pspecs, sspecs, tok_spec):
+    """The decode step on `DTensor`s over `mesh`: the model's params are
+    placed by their specs the first time (in place, as a device put of
+    the module), the states at every call (a no-op once placed), and the
+    step runs with plain tensors made inside the model taken as
+    replicated.  Returns the logits as a plain tensor on every rank."""
+    ms = shd.mesh_shape(mesh)
+
+    def fn(params: lm.LM, token, states, index):
+        _check_cfg(params, cfg)
+        prev = cm.set_linear_hook(None)
+        try:
+            with implicit_replication():
+                if not isinstance(params.embed["e"], DTensor):
+                    shd.place_module(params, mesh, shd.shardings_pruned(
+                        mesh, pspecs, params.state_dict()))
+                where = shd.shardings_pruned(mesh, sspecs, states)
+                for st, pl in zip(states, where):
+                    for k in st:
+                        st[k] = shd.place(st[k], mesh, pl[k])
+                token = torch.as_tensor(token, device=params.device)
+                tok = shd.place(token, mesh, shd.placements(
+                    mesh, shd._prune_spec(tok_spec, tuple(token.shape), ms)))
+                logits, states = lm.decode_step(params, tok, states, index)
+                return logits.full_tensor(), states
+        finally:
+            cm.set_linear_hook(prev)
+    return fn
+
+
+def make_jitted_serve_step(mesh, cfg: cm.Config,
+                           rules: Optional[dict] = None):
+    """The compiled one-token decode step over `mesh` (a
+    `torch.distributed` `DeviceMesh`, see `launch.mesh`):
+    ``fn(params, token, states, index) -> (logits, states)``.
+
+    On a mesh of many ranks, params and states are placed by
+    `lm.specs` / `lm.decode_state_specs` through `shardings_pruned`
+    under `rules` (the token by ``("batch", None)``), and the step runs
+    on `DTensor`s.  On a one-device CUDA mesh nothing is placed (a
+    `DTensor` over one rank adds host dispatch and no collective): the
+    step is a `CapturedServeStep`.  On a one-device CPU mesh it is the
+    eager `lm.decode_step`.
+    """
+    shd.set_mesh_axes(mesh.mesh_dim_names)
+    shd.set_active_rules(rules)
+    if mesh.size() > 1:
+        return _placed_step(
+            mesh, cfg, shd.tree_specs(lm.specs(cfg), rules),
+            shd.tree_specs(lm.decode_state_specs(cfg), rules),
+            shd.spec_for(("batch", None), rules))
+    if mesh.device_type == "cuda":
+        return CapturedServeStep(cfg)
+
+    def eager(params: lm.LM, token, states, index):
+        _check_cfg(params, cfg)
+        prev = cm.set_linear_hook(None)
+        try:
+            return lm.decode_step(params, torch.as_tensor(
+                token, device=params.device), states, index)
+        finally:
+            cm.set_linear_hook(prev)
+    return eager

@@ -27,6 +27,8 @@ from typing import Dict, Tuple
 import torch
 from torch.nn import functional as F
 
+from ..parallel.sharding import like
+
 BLOCK = 256
 
 Tree = Dict[str, torch.Tensor]
@@ -116,6 +118,18 @@ def init_state(params: Tree, cfg: AdamWConfig) -> State:
     return out
 
 
+def state_specs(param_specs: Dict[str, tuple], cfg: AdamWConfig
+                ) -> Dict[str, Dict[str, tuple]]:
+    """Optimizer-state logical axes mirror the param axes (name -> axes,
+    `models.lm.specs`); the int8 q has the param's shape and spec, and
+    the scales share all but the last axis (the blocked last dim usually
+    stops dividing, and prunes to replicated)."""
+    if cfg.int8_second_moment:
+        return {k: {"m": s, "v_q": s, "v_s": s}
+                for k, s in param_specs.items()}
+    return {k: {"m": s, "v": s} for k, s in param_specs.items()}
+
+
 def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
                           for x in tree.values()))
@@ -126,7 +140,8 @@ def apply_updates(params: Tree, grads: Tree, opt_state: State,
                   step: torch.Tensor, cfg: AdamWConfig
                   ) -> Tuple[Tree, State]:
     """One AdamW step at int32 `step` (0-d tensor), in place: writes each
-    param and its state and returns them."""
+    param and its state and returns them (placed ones shard by shard,
+    `sharding.like`)."""
     lr = schedule(cfg, step)
     gn = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
@@ -143,12 +158,12 @@ def apply_updates(params: Tree, grads: Tree, opt_state: State,
         update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
         if p.ndim >= 2:
             update = update + cfg.weight_decay * p.to(torch.float32)
-        p.copy_((p.to(torch.float32) - lr * update).to(p.dtype))
-        s["m"].copy_(m.to(torch.bfloat16))
+        p.copy_(like((p.to(torch.float32) - lr * update).to(p.dtype), p))
+        s["m"].copy_(like(m.to(torch.bfloat16), s["m"]))
         if "v_q" in s:
             q, sc = _q8_encode(v)
-            s["v_q"].copy_(q)
-            s["v_s"].copy_(sc)
+            s["v_q"].copy_(like(q, s["v_q"]))
+            s["v_s"].copy_(like(sc, s["v_s"]))
         else:
-            s["v"].copy_(v)
+            s["v"].copy_(like(v, s["v"]))
     return params, opt_state

@@ -13,16 +13,24 @@ divided by the count, accumulate in ``accum_dtype`` before one optimizer
 update - the numerics of the unsplit step (a mean of means over equal
 slices).  As in the JAX function, a microbatched step reports the total
 loss as ``nll`` and 0 as ``aux``.
+
+`make_jitted_train_step` is the compiled step over a mesh: the state
+placed by `state_specs` and the batch by `batch_specs`, and on one card
+the eager step on plain tensors.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..models import lm
 from ..models.common import Config
+from ..parallel import sharding as shd
 from . import optimizer as opt
 
 Batch = Dict[str, torch.Tensor]
@@ -52,6 +60,18 @@ def init_state(generator: torch.Generator, cfg: Config, tcfg: TrainConfig,
                device="cuda") -> Dict[str, Any]:
     """Random params from `generator` (on `device`) and zero moments."""
     return state_for(lm.init(generator, cfg, device), tcfg)
+
+
+def state_specs(cfg: Config, tcfg: TrainConfig) -> Dict[str, Any]:
+    """Logical axes of the train state: ``params`` by state-dict name
+    (`lm.specs`), ``opt`` mirroring them, ``step`` a scalar."""
+    pspecs = lm.specs(cfg)
+    return {"params": pspecs, "opt": opt.state_specs(pspecs, tcfg.adamw),
+            "step": ()}
+
+
+def batch_specs() -> Dict[str, tuple]:
+    return {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
 
 
 def _split_micro(batch: Batch, n: int) -> List[Batch]:
@@ -95,13 +115,13 @@ def train_step(state: Dict[str, Any], batch: Batch, cfg: Config,
         loss, metrics, grads = loss_and_grads(model, batch, tcfg)
     else:
         adt = getattr(torch, tcfg.accum_dtype)
-        grads = {n: torch.zeros(p.shape, dtype=adt, device=dev)
+        grads = {n: torch.zeros_like(p, dtype=adt)
                  for n, p in model.named_parameters()}
         loss = 0.0
         for mb in _split_micro(batch, nmb):
             lv, _, g = loss_and_grads(model, mb, tcfg)
             for n, acc in grads.items():
-                acc += (g[n] / nmb).to(adt)
+                acc += shd.like((g[n] / nmb).to(adt), acc)
             del g
             loss = loss + lv / nmb
         metrics = {"nll": loss,
@@ -111,3 +131,50 @@ def train_step(state: Dict[str, Any], batch: Batch, cfg: Config,
     state["step"] += 1
     return state, {"loss": loss, "grad_norm": opt.global_norm(grads),
                    **metrics}
+
+
+def _place_state(mesh, sspecs, state: Dict[str, Any]) -> None:
+    """Place the train state on `mesh` by its specs, in place: the
+    model's params as `DTensor` params (their gradients stay on), the
+    moments and the step alike; a no-op once placed."""
+    model = state["params"]
+    if isinstance(model.embed["e"], DTensor):
+        return
+    shd.place_module(model, mesh, shd.shardings_pruned(
+        mesh, sspecs["params"], model.state_dict()))
+    where = shd.shardings_pruned(mesh, sspecs["opt"], state["opt"])
+    for name, moments in state["opt"].items():
+        for k in moments:
+            moments[k] = shd.place(moments[k], mesh, where[name][k])
+    state["step"] = shd.place(state["step"], mesh,
+                              shd.placements(mesh, sspecs["step"]))
+
+
+def make_jitted_train_step(mesh, cfg: Config, tcfg: TrainConfig,
+                           rules: Optional[dict] = None):
+    """`train_step` over `mesh` (a `torch.distributed` `DeviceMesh`):
+    ``fn(state, batch) -> (state, metrics)``, the state updated in place
+    (the counterpart of ``donate_argnums``).
+
+    On a mesh of many ranks the state is placed by `state_specs` through
+    `shardings_pruned` under `rules` (once, in place) and the batch by
+    `batch_specs`, and the step runs on `DTensor`s, with plain tensors
+    made inside the model taken as replicated; the metrics are
+    `DTensor`s too.  On one rank nothing is placed and the step is the
+    eager `train_step` (on a card, not captured).
+    """
+    shd.set_mesh_axes(mesh.mesh_dim_names)
+    shd.set_active_rules(rules)
+    if mesh.size() == 1:
+        return functools.partial(train_step, cfg=cfg, tcfg=tcfg)
+    sspecs = shd.tree_specs(state_specs(cfg, tcfg), rules)
+    bwhere = shd.shardings(mesh, shd.tree_specs(batch_specs(), rules))
+
+    def fn(state: Dict[str, Any], batch: Batch):
+        with implicit_replication():
+            _place_state(mesh, sspecs, state)
+            dev = state["params"].device
+            batch = {k: shd.place(torch.as_tensor(v).to(dev), mesh,
+                                  bwhere[k]) for k, v in batch.items()}
+            return train_step(state, batch, cfg, tcfg)
+    return fn

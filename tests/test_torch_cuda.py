@@ -876,3 +876,90 @@ def test_checkpoint_round_trip_of_cuda_bf16_state(cuda, tmp_path):
     assert got[0].device.type == cuda.type and got[0].dtype == torch.bfloat16
     assert len(got) == len(want)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# -- the compiled decode step on one card -----------------------------------
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    """`make_host_mesh()`'s (1, 1) mesh over the one-rank NCCL group it
+    starts, stopped after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (chip_smoke.py runs these checks "
+                    "on the GPU)")
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    started = not dist.is_initialized()
+    mesh = mesh_mod.make_host_mesh()
+    yield mesh
+    if started:
+        dist.destroy_process_group()
+
+
+def test_host_mesh_on_the_card(card_mesh):
+    import torch.distributed as dist
+    assert tuple(card_mesh.shape) == (1, 1)
+    assert card_mesh.mesh_dim_names == ("data", "model")
+    assert card_mesh.device_type == "cuda"
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+
+
+def _replay_vs_eager(mesh, vector_index):
+    from repro_torch.serve import engine
+    dev = torch.device("cuda")
+    cfg = cm.reduced(configs.get("smollm-360m"), vocab=512, d_model=128,
+                     d_ff=256, n_layers=2, dtype="bfloat16", quant_bits=8)
+    model = lm.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    per_call = lm.packed_projections(model)
+    step = engine.make_jitted_serve_step(mesh, cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (4, 4), generator=gen, device=dev)
+
+    def index(t):
+        if vector_index:
+            return torch.arange(4, device=dev) + t
+        return t
+    states = lm.decode_state_init(cfg, 4, 16, dev)
+    for t in range(4):
+        logits, states = step(model, prompt[:, t:t + 1], states, index(t))
+    eager = [{k: v.clone() for k, v in st.items()} for st in states]
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    for t in range(4, 10):
+        before = bpm.launches
+        got, states = step(model, tok, states, index(t))
+        assert bpm.launches - before == per_call
+        want, eager = lm.decode_step(model, tok, eager, index(t))
+        assert torch.equal(got, want)
+        assert all(torch.equal(a[k], b[k]) for a, b in zip(states, eager)
+                   for k in a)
+        tok = torch.argmax(got[:, -1], dim=-1)[:, None]
+    return step
+
+
+@pytest.mark.parametrize("vector_index", [False, True])
+def test_captured_decode_step_equals_eager(card_mesh, vector_index):
+    """The replayed graph, fed a new token and position each call, gives
+    the eager step's logits and states bit for bit, and each replay
+    counts one bit-plane launch a packed projection."""
+    step = _replay_vs_eager(card_mesh, vector_index)
+    assert len(step.graphs) == 1
+
+
+def test_captured_step_keys_graphs_by_state_storage(card_mesh):
+    from repro_torch.serve import engine
+    dev = torch.device("cuda")
+    cfg = cm.reduced(configs.get("smollm-360m"), vocab=512, n_layers=1,
+                     dtype="bfloat16", quant_bits=8)
+    model = lm.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    step = engine.make_jitted_serve_step(card_mesh, cfg)
+    tok = torch.tensor([[5], [9]], device=dev)
+    a = lm.decode_state_init(cfg, 2, 8, dev)
+    b = lm.decode_state_init(cfg, 2, 8, dev)
+    la, a = step(model, tok, a, 0)
+    la, a = step(model, tok + 1, a, 1)
+    lb, b = step(model, tok, b, 0)
+    assert len(step.graphs) == 2
+    fresh = lm.decode_state_init(cfg, 2, 8, dev)
+    want, _ = lm.decode_step(model, tok, fresh, 0)
+    assert torch.equal(lb, want)
+    assert not torch.equal(la, lb)
