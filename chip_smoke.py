@@ -197,10 +197,31 @@ lines; any failure exits nonzero, and nothing is caught:
      projections (M = 1,056) and Whisper's cross K/V (M = 6,144), y in
      f32 (also bf16 torch.mm with f32 y) and in bf16, each one's largest
      gap relative to the largest |y|;
+ 19. training across ranks, the sharded grid and the launch tools on one
+     card: (a) SmolLM-360M in bf16 at full width, 2 x 2,048 tokens,
+     deterministic: `Trainer(mesh=make_host_mesh())` for 4 steps with a
+     checkpoint every 2, then a second `Trainer` on a new (1, 1) mesh
+     restoring step 2 through `restore(shardings=...)` and running to
+     step 4, its params and moments bit for bit the first run's; ms a
+     step, checkpoint GB, save and restore s; and
+     `python -m repro_torch.launch.train --reduced --mesh host --fsdp
+     --steps 3` exits 0; (a') phase 17a's step (f32, TF32 off, 1 x 128):
+     the card's and the CPU's gradients of three leaves, and each side's
+     farthest leaf, against an f64 gradient of the same step on the CPU;
+     (b) `comefa_gemv_batched` on `mesh=grid_mesh()` at SmolLM-360M's
+     four projection shapes (8-bit, 4 slots) equal to the call without a
+     mesh (results, stats, cycles, dispatches), with the step kernel's
+     launches counted and equal to the dispatches; one sharded dispatch
+     of #2 against the plain packed scan, `torch.equal`; (c) the launch
+     tools (a subprocess begun before (a), on a fake process group and
+     meta tensors): `dryrun` and `roofline` of SmolLM-360M's three cells
+     on the fake 16 x 16 mesh, and the roofline bound of phase 17b's step
+     counted on a one-rank fake mesh, printed beside 17b's measured ms a
+     step and held below it;
 
 then one JSON line of kernel records (the bit-plane kernel's launches are
-phases 4's, 15's, 16's and 18's, the step kernel's phase 8's, phase 14's
-and phase 18's),
+phases 4's, 15's, 16's and 18's, the step kernel's phase 8's, phase 14's,
+phase 18's and phase 19's),
 the card's name and power limit as nvidia-smi prints them, and the
 result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -2751,7 +2772,7 @@ def phase_trainer(tr, dev, smi, root):
           f"timed step; phase 17b {time.perf_counter() - t0:.1f} s (init "
           f"{init_s:.1f} s, run {run_s:.1f} s, profile {profile_s:.1f} s)")
     del trainer, state
-    return lcfg.ckpt_dir
+    return lcfg.ckpt_dir, step_s
 
 
 def phase_restart(tr, dev, root):
@@ -2981,7 +3002,7 @@ def phase_train(bpm, cs, ks, dev, smi):
     tr.CheckpointManager._gc = measured_gc
     try:
         phase_train_vs_cpu(tr, dev)
-        ckpt_dir = phase_trainer(tr, dev, smi, root)
+        ckpt_dir, step_s = phase_trainer(tr, dev, smi, root)
         phase_int8_moment(tr, dev, ckpt_dir)
         phase_restart(tr, dev, root)
         for name, tag, depth, b, s in FAMILY_TRAIN:
@@ -3001,6 +3022,7 @@ def phase_train(bpm, cs, ks, dev, smi):
     print(f"[17 train] kernel launches in phase 17: {launched} (none on "
           f"the training path); phase 17 took "
           f"{time.perf_counter() - t0:.1f} s")
+    return step_s
 
 
 # ---------------------------------------------------------------------------
@@ -3340,6 +3362,331 @@ def phase_distribution(bpm, cs, dev, smi):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training across ranks, the sharded grid and the launch tools
+# ---------------------------------------------------------------------------
+
+MESH_BATCH, MESH_STEPS, MESH_CKPT_EVERY = 2, 4, 2   # 19a: 2 x 2,048 tokens
+# 19a': the gradient leaves held against f64: the farthest in phase
+# 17a's comparison of the card with the CPU, and two others
+GAP_LEAVES = ("stack.5.n1.g", "stack.0.mix.wq.w", "embed.e")
+# 19c: phase 17b's step as a cell of the launch tools (chip_smoke only)
+STEP_17B = ("chip_17b", TRAIN_SEQ, TRAIN_BATCH, "train")
+TOOLS_SCRIPT = r"""
+import json, sys, time
+from repro_torch.launch import dryrun as dr, roofline, shapes
+out, res = {}, sys.argv[1]
+for shape in ("train_4k", "prefill_32k", "decode_32k"):
+    t = time.time()
+    d = dr.run_cell("smollm-360m", shape, "single", results=res)
+    r = roofline.analyze_cell("smollm-360m", shape, results=res)
+    out[shape] = {"dryrun_flops": d["flops"], "bytes": d["bytes_accessed"],
+                  "coll": d["collective_bytes"],
+                  "bound_s": r["step_time_lower_bound_s"],
+                  "dominant": r["dominant"],
+                  "roofline_frac": r["roofline_frac"],
+                  "s": time.time() - t}
+name, seq, batch, kind = sys.argv[2].split(",")
+shapes.SHAPES[name] = shapes.ShapeCase(name, int(seq), int(batch), kind)
+dr.TRAIN_SETTINGS["smollm-360m"] = dict(fsdp=False,
+                                        microbatches=int(sys.argv[3]))
+t = time.time()
+r = roofline.analyze_cell("smollm-360m", name, mesh_shape=(1, 1),
+                          save=False)
+out["17b"] = {k: r[k] for k in ("compute_s", "memory_s", "collective_s",
+                                 "step_time_lower_bound_s", "dominant",
+                                 "flops_per_chip", "bytes_per_chip",
+                                 "model_flops_per_chip")}
+out["17b"]["s"] = time.time() - t
+print("TOOLS " + json.dumps(out))
+"""
+
+
+def _start_tools(root):
+    """19c's counting, in a process of its own (it starts a fake process
+    group), begun before 19a so that its CPU work overlaps the card's."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-c", TOOLS_SCRIPT, os.path.join(root, "results"),
+         ",".join(map(str, STEP_17B)), str(TRAIN_MICRO)],
+        cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+
+
+class _F64(torch.overrides.TorchFunctionMode):
+    """Every float32 that the model's code names becomes float64: the same
+    algorithm with every product, norm and softmax in f64."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = {k: torch.float64 if v is torch.float32 else v
+                  for k, v in (kwargs or {}).items()}
+        args = tuple(torch.float64 if a is torch.float32 else a
+                     for a in args)
+        return func(*args, **kwargs)
+
+
+def phase_gradient_gap(tr, dev):
+    """(19a') Phase 17a's step (full SmolLM-360M, f32, TF32 off, 1 x 128):
+    the card's and the CPU's gradient of `GAP_LEAVES`, each against an
+    f64 gradient of the same step on the CPU, as a share of the leaf's
+    largest |grad|; and each side's farthest leaf over all of them."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(tr.configs.get("smollm-360m"), dtype="float32")
+    tcfg = tr.tcfg(TRAIN_STEPS, microbatches=1)
+    cpu = tr.step.init_state(torch.Generator().manual_seed(0), cfg, tcfg,
+                             "cpu")["params"]
+    gpu = copy.deepcopy(cpu).to(dev)
+    # the f64 copy without remat: its backward would recompute the
+    # forward outside the mode (on autograd's thread), in f32
+    f64 = copy.deepcopy(cpu).double()
+    f64.cfg = dataclasses.replace(cfg, remat=False)
+    batch = tr.data(cfg, batch=1, seq=CHECK_SEQ, seed=7).batch_at(0)
+    _, _, g_c = tr.step.loss_and_grads(cpu, batch, tcfg)
+    _, _, g_g = tr.step.loss_and_grads(
+        gpu, {k: v.to(dev) for k, v in batch.items()}, tcfg)
+    with _F64():
+        loss64, _, g_64 = tr.step.loss_and_grads(f64, batch, tcfg)
+    if any(g.dtype != torch.float64 for g in g_64.values()) or \
+            loss64.dtype != torch.float64:
+        fail("19a' the f64 reference ran in another type")
+
+    def gap(g, name):
+        ref = g_64[name]
+        return float((g[name].double().cpu() - ref).abs().max()) / max(
+            float(ref.abs().max()), 1e-300)
+
+    rows = []
+    for name in GAP_LEAVES:
+        rows.append(f"{name}: card {gap(g_g, name):.3e}, CPU "
+                    f"{gap(g_c, name):.3e}, card-CPU "
+                    f"{float((g_g[name].cpu() - g_c[name]).abs().max()) / max(float(g_c[name].abs().max()), 1e-30):.3e}")
+    far_g = max(g_64, key=lambda n: gap(g_g, n))
+    far_c = max(g_64, key=lambda n: gap(g_c, n))
+    print(f"[19a' gap] each leaf's largest gap from the f64 gradient of "
+          f"the same step, over its largest |grad|: {'; '.join(rows)}; "
+          f"farthest over all {len(g_64)} leaves: card {far_g} "
+          f"{gap(g_g, far_g):.3e}, CPU {far_c} {gap(g_c, far_c):.3e}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del gpu, g_g
+    torch.cuda.empty_cache()
+
+
+def phase_trainer_mesh(tr, dev, smi, root):
+    """(19a) SmolLM-360M in bf16 at full width, deterministic (phase 17c's
+    mode), 2 x 2,048 tokens: `Trainer(mesh=make_host_mesh())` for 4 steps
+    with a checkpoint every 2; then a second `Trainer` on a new (1, 1)
+    mesh restores step 2 (`restore(shardings=...)`) and runs to step 4:
+    its params and moments equal the first run's bit for bit.  Then the
+    launcher with ``--mesh host --fsdp`` on the card."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    t0 = time.perf_counter()
+    cfg = tr.configs.get("smollm-360m")
+    tcfg = tr.tcfg(MESH_STEPS, microbatches=1)
+    data = tr.data(cfg, batch=MESH_BATCH)
+
+    def trainer(path, mesh):
+        lcfg = tr.loop.LoopConfig(total_steps=MESH_STEPS,
+                                  ckpt_every=MESH_CKPT_EVERY, ckpt_dir=path,
+                                  log_every=MESH_STEPS)
+        return tr.loop.Trainer(cfg, tcfg, lcfg, data, mesh=mesh, device=dev)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        mesh = mesh_mod.make_host_mesh()
+        first = trainer(os.path.join(root, "a"), mesh)
+        saves = []
+        _time_saves(first.ckpt, saves)
+        state = first.run(first.init_or_restore())
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+        step_ms = 1e3 * float(np.median(first.step_times[1:]))
+        want = {k: v.clone() for k, v in tr.manager.leaves(state)}
+        del state, first
+        shutil.copytree(os.path.join(root, "a", "step_0000000002"),
+                        os.path.join(root, "b", "step_0000000002"))
+        shutil.rmtree(os.path.join(root, "a"))
+        mesh = mesh_mod.make_host_mesh()
+        second = trainer(os.path.join(root, "b"), mesh)
+        t1 = time.perf_counter()
+        state = second.init_or_restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        if int(state["step"]) != MESH_CKPT_EVERY:
+            fail(f"19a the second trainer resumed at {int(state['step'])}")
+        state = second.run(state)
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got = dict(tr.manager.leaves(state))
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    writes = [f"step {st} {w / 1e9:.3f} GB in {dt:.3f} s"
+              for kind, st, w, dt in saves if kind == "write"]
+    print(f"[19a train] Trainer(mesh=make_host_mesh()), {cfg.name} bf16, "
+          f"{MESH_BATCH} x {TRAIN_SEQ} tokens, {MESH_STEPS} steps, "
+          f"deterministic: median {step_ms:.2f} ms a step; checkpoints "
+          f"written: {', '.join(writes)}; the "
+          f"second Trainer on a new (1, 1) mesh restored step "
+          f"{MESH_CKPT_EVERY} with restore(shardings=...) in {restore_s:.3f}"
+          f" s and ran to step {MESH_STEPS}: {len(want) - len(differ)} of "
+          f"{len(want)} tensors bit for bit equal to the first run's; "
+          f"{smi}")
+    if differ:
+        fail(f"19a {len(differ)} tensors differ after the restore "
+             f"(first {differ[:1]})")
+    del state, want, got
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--mesh", "host", "--fsdp", "--steps", "3", "--ckpt",
+         os.path.join(root, "launcher")], cwd=ROOT, text=True,
+        capture_output=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    last = (out.stdout.strip().splitlines() or [""])[-1]
+    print(f"[19a launcher] python -m repro_torch.launch.train --reduced "
+          f"--mesh host --fsdp --steps 3: exit {out.returncode}, "
+          f"{last!r}, {time.perf_counter() - t1:.1f} s; 19a "
+          f"{time.perf_counter() - t0:.1f} s")
+    if out.returncode != 0 or last != "finished at step 3":
+        fail(f"19a the launcher: {out.stderr[-1500:]}")
+
+
+def phase_sharded_grid(cs, dev):
+    """(19b) `comefa_gemv_batched` on `mesh=grid_mesh()` (the one-rank NCCL
+    group's 1-D mesh) at phase 8's SmolLM-360M projection shapes, 8-bit
+    weights and activations, 4 slots, against the same call without a
+    mesh: results, stats, cycles and dispatches equal; the step kernel's
+    launches (counted) equal the grid's dispatches, so the cuda engine
+    ran.  Then one sharded dispatch of #2 held to its plain version.
+    Returns the kernel's launches on the sharded path."""
+    import torch.distributed as dist
+    from repro_torch.core.comefa import grid as grid_mod
+    from repro_torch.kernels import comefa_sim
+    from repro_torch.obs import metrics
+    from repro_torch.serve import comefa_exec
+    t0 = time.perf_counter()
+    mesh = grid_mod.grid_mesh()
+    launched = 0
+    try:
+        rng = np.random.default_rng(19)
+        rows = []
+        for (k, n) in SMOLLM_SHAPES:
+            w_int = rng.integers(0, 1 << BITS, (k, n))
+            w = comefa_sim.stage_weights(w_int, BITS, dev)
+            x = rng.integers(0, 1 << BITS, (GRID_SLOTS, k))
+            acc = comefa_exec.acc_bits_for(BITS, BITS, k)
+            out = []
+            for m in (None, mesh):
+                stats = {}
+                d0, l0 = _grid_dispatches(metrics), cs.launches
+                y = comefa_sim.comefa_gemv_batched(
+                    w, x, w_bits=BITS, x_bits=BITS, acc_bits=acc,
+                    stats=stats, mesh=m, device=dev)
+                torch.cuda.synchronize()
+                out.append((y, stats, _grid_dispatches(metrics) - d0,
+                            cs.launches - l0))
+            (y0, s0, d0, l0), (y1, s1, d1, l1) = out
+            launched += l1
+            rows.append(f"({k}, {n}) cycles {s1['cycles']}, {d1} "
+                        f"dispatches, {l1} launches")
+            if not (np.array_equal(y0, y1) and s0 == s1 and d0 == d1):
+                fail(f"19b ({k}, {n}) sharded {s1} {d1} against {s0} {d0}")
+            if not (l1 == d1 > 0 and l0 == d0):
+                fail(f"19b ({k}, {n}) {l1} launches for {d1} dispatches: "
+                     "the step kernel did not run every dispatch")
+            if not np.array_equal(y1, x.astype(np.int64) @ w_int):
+                fail(f"19b ({k}, {n}) not the integer product")
+        # one sharded dispatch of #2 against its plain version
+        plan, mat = _chunk_program(comefa_sim, comefa_exec, 960, 2560)
+        from repro_torch.core.comefa import isa
+        mem, carry, mask = _random_grid_state(np.random.default_rng(20),
+                                              GRID_SLOTS, plan.n_blocks, isa)
+        grid = grid_mod.ComefaGrid(GRID_SLOTS, n_blocks=plan.n_blocks,
+                                   mesh=mesh, device=dev)
+        grid.mem, grid.carry, grid.mask = mem, carry, mask
+        grid._ensure_device()
+        before = tuple(t.to_local().clone() for t in grid._dev)
+        grid.run(mat)
+        after = tuple(t.to_local() for t in grid._dev)
+        cs.run_packed_plain(*before, torch.tensor(mat, device=dev),
+                            chain=False, per_slot=False)
+        same = [torch.equal(a, b) for a, b in zip(after, before)]
+    finally:
+        dist.destroy_process_group()
+    print(f"[19b grid] comefa_gemv_batched on grid_mesh() (1 rank, "
+          f"{GRID_SLOTS} slots) = the call without a mesh at "
+          f"{'; '.join(rows)}; one sharded dispatch (T={mat.shape[0]}, "
+          f"nb={plan.n_blocks}) against the plain packed scan: mem, carry, "
+          f"mask equal {same}; {time.perf_counter() - t0:.1f} s")
+    if not all(same):
+        fail("19b the sharded dispatch differs from the plain version")
+    return launched
+
+
+def phase_tools(proc, train_step_s, smi):
+    """(19c) The launch tools' counts of SmolLM-360M's three cells on the
+    fake 16 x 16 mesh (the process started before 19a), and the roofline
+    bound of phase 17b's step (8 x 2,048 tokens, 2 microbatches) counted
+    on a one-rank fake mesh, beside the time 17b measured in this run."""
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail("19c the launch tools did not finish in 600 s")
+    line = [ln for ln in out.splitlines() if ln.startswith("TOOLS ")]
+    if proc.returncode != 0 or not line:
+        fail(f"19c the launch tools failed: {err[-2000:]}")
+    r = json.loads(line[-1][len("TOOLS "):])
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        c = r[shape]
+        print(f"[19c tools] smollm-360m x {shape} on the fake 16 x 16 mesh, "
+              f"per rank: {c['dryrun_flops']:.4e} FLOPs, "
+              f"{c['bytes']:.4e} bytes (op level), collectives "
+              f"{ {k: f'{v:.3e}' for k, v in c['coll'].items()} }; roofline "
+              f"bound {c['bound_s']:.4e} s ({c['dominant']}), roofline "
+              f"fraction {c['roofline_frac']:.4f}; {c['s']:.1f} s")
+    b = r["17b"]
+    bound = b["step_time_lower_bound_s"]
+    print(f"[19c roofline] phase 17b's step ({TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens, {TRAIN_MICRO} microbatches, bf16) counted on a "
+          f"one-rank fake mesh: {b['flops_per_chip']:.4e} FLOPs, "
+          f"{b['bytes_per_chip']:.4e} bytes (op level, no fusion); compute "
+          f"{1e3 * b['compute_s']:.3f} ms, memory {1e3 * b['memory_s']:.3f}"
+          f" ms, bound {1e3 * bound:.3f} ms ({b['dominant']}); measured in "
+          f"17b: {1e3 * train_step_s:.2f} ms a step; bound / measured = "
+          f"{bound / train_step_s:.4f} (H100 SXM data-sheet peaks, this "
+          f"card: {smi}); {b['s']:.1f} s")
+    if not 0 < bound < train_step_s:
+        fail(f"19c the bound {bound:.4f} s is not below the measured "
+             f"{train_step_s:.4f} s: a counting fault")
+
+
+def phase_mesh_slice(bpm, cs, ks, dev, smi, train_step_s):
+    """Phase 19: training across ranks (19a, 19a'), the sharded grid on
+    the step kernel (19b) and the launch tools (19c).  Returns the step
+    kernel's launches on 19b's counted path."""
+    import tempfile
+    t0 = time.perf_counter()
+    tr = _Training()
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    proc = _start_tools(root)
+    try:
+        phase_trainer_mesh(tr, dev, smi, root)
+        phase_gradient_gap(tr, dev)
+        launched = phase_sharded_grid(cs, dev)
+        phase_tools(proc, train_step_s, smi)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[19 mesh] step kernel launches on 19b's sharded path "
+          f"{launched}; phase 19 took {time.perf_counter() - t0:.1f} s")
+    return launched
+
 
 def main():
     sys.stdout.reconfigure(line_buffering=True)
@@ -3408,8 +3755,9 @@ def main():
         bpm, bitplane, configs, common, lm, engine, dev, smi)
     print(f"[16 families] bit-plane kernel launches: phase 4 {launched}, "
           f"phase 15 {family_launched}, phase 16 {new_launched}")
-    phase_train(bpm, cs, ks, dev, smi)
+    train_step_s = phase_train(bpm, cs, ks, dev, smi)
     dist_launched = phase_distribution(bpm, cs, dev, smi)
+    mesh_launched = phase_mesh_slice(bpm, cs, ks, dev, smi, train_step_s)
     record = {"kernels": [
         {"name": "bitplane_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
@@ -3421,7 +3769,7 @@ def main():
          "source": "src/repro_torch/kernels/csrc/comefa_step.cu",
          "replaces": "src/repro/kernels/comefa_step.py:80",
          "launches": step_launched + eval_launched
-         + dist_launched["comefa_step"],
+         + dist_launched["comefa_step"] + mesh_launched,
          "max_abs_err": step_err, **timing}]}
     for name, (source, replaces) in BITSERIAL_KERNELS.items():
         record["kernels"].append({

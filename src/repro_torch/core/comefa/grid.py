@@ -24,17 +24,32 @@ is bit-identical - mem, carry, mask, and cycle counts - to an independent
 ``ComefaArray.run(p)`` on the same initial state, including ``chain=True``
 corner-PE threading and ``run_programs`` latch-reset boundaries.  The grid
 never chains *across* slots: slots are independent arrays, each with its
-own (optionally chained) block row.  Sharding the grid axis over several
-devices is not part of this module.
+own (optionally chained) block row.
+
+Given a `torch.distributed` `DeviceMesh` (`grid_mesh`), the slot axis is
+sharded over its ranks through the ``"grid"`` rule of
+`parallel.sharding` (`grid_shardings`): the device state is three
+`DTensor`s, each rank holds and runs its own slots (the engine runs on
+its shard through `local_map`, on a card the CUDA step kernel: nothing
+is swapped), host reads gather and writes reach the rank that holds the
+slot.  Every rank runs the same calls, as under SPMD, and the counters
+(`cycles`, `dispatches`, `io_words`) count as an unsharded grid's do.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
 
 from ...obs import trace as obs_trace
+from ...parallel import sharding as shd
 from . import block, engine_packed, isa, verify
 from .block import (ComefaArray, encoded, read_port_word, write_port_word)
 from .isa import N_COLS, N_ROWS, ROW_ONES
@@ -100,17 +115,27 @@ class ComefaGrid:
     stream (the paper's array-of-arrays evaluation scale): state is G
     stacked `ComefaArray` states on `device`, and `run`/`run_programs`
     execute across every slot in a single dispatch.  The engine follows
-    the device unless one is named (`block.get_engine`).
+    the device unless one is named (`block.get_engine`).  Pass a
+    `DeviceMesh` (`grid_mesh`) to shard the slot axis over its ranks
+    (`rules` override the ``"grid"`` rule; a grid that the ranks do not
+    divide is replicated).
     """
 
     def __init__(self, g: int, n_blocks: int = 1, chain: bool = False,
-                 engine=None, device="cuda"):
+                 mesh=None, rules=None, engine=None, device="cuda"):
         assert g >= 1
         self.g = g
         self.n_blocks = n_blocks
         self.chain = chain
         self.device = block.resolve_device(device)
         self.engine = block.get_engine(engine, self.device)
+        self.mesh = mesh
+        self._where = None
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"the mesh lies on {mesh.device_type}, "
+                                 f"the grid on {self.device}")
+            self._where = grid_shardings(mesh, g, n_blocks, rules)
         self.cycles = 0           # per-slot compute cycles (slots run in lockstep)
         self.io_words = 0         # port words moved across ALL slots
         self.reset()
@@ -140,8 +165,11 @@ class ComefaGrid:
         if self._dev is not None:
             with obs_trace.span("grid.host_sync", engine=self.engine.name,
                                 slots=self.g):
+                dev = self._dev
+                if self.mesh is not None:          # gather every slot
+                    dev = tuple(x.full_tensor() for x in dev)
                 self._mem, self._carry, self._mask = self.engine.to_host(
-                    self._dev)
+                    dev)
             self._dev = None
             self.host_syncs += 1
             block._HOST_SYNCS.inc(kind="grid")
@@ -195,17 +223,42 @@ class ComefaGrid:
         """
         self._ensure_device()
         shape = (self.g, self.n_blocks, len(rows), engine_packed.N_WORDS)
-        self._dev = self.engine.write_rows(self._dev, _row_index(rows),
-                                           words.expand(shape))
+        index, engine = _row_index(rows), self.engine
+        words = words.expand(shape)
+        if self.mesh is None:
+            self._dev = engine.write_rows(self._dev, index, words)
+            return
+        # every rank holds the same words; each keeps its slots' (a local
+        # cut of a replicated tensor, no collective)
+        words = DTensor.from_local(words, self.mesh,
+                                   [Replicate()] * self.mesh.ndim,
+                                   run_check=False)
+        mem_at, latch_at, _ = self._where
+        self._dev = local_map(
+            lambda m, c, k, w: engine.write_rows((m, c, k), index, w),
+            out_placements=(mem_at, latch_at, latch_at),
+            in_placements=(mem_at, latch_at, latch_at, mem_at),
+            device_mesh=self.mesh, redistribute_inputs=True)(
+                *self._dev, words)
 
     def read_rows(self, rows: Sequence[int]) -> torch.Tensor:
         """Packed words ``[G, n_blocks, len(rows), 5]`` int32 of the given
-        rows of every slot, read on the device (no host sync)."""
+        rows of every slot, read on the device (no host sync; on a mesh
+        every rank gathers every slot's)."""
         self._ensure_device()
-        return self.engine.read_rows(self._dev, _row_index(rows))
+        index, engine = _row_index(rows), self.engine
+        if self.mesh is None:
+            return engine.read_rows(self._dev, index)
+        mem_at, latch_at, _ = self._where
+        return local_map(
+            lambda m, c, k: engine.read_rows((m, c, k), index),
+            out_placements=list(mem_at),      # a list: one output
+            in_placements=(mem_at, latch_at, latch_at),
+            device_mesh=self.mesh)(*self._dev).full_tensor()
 
     @classmethod
-    def from_arrays(cls, arrays: Sequence[ComefaArray]) -> "ComefaGrid":
+    def from_arrays(cls, arrays: Sequence[ComefaArray], mesh=None,
+                    rules=None) -> "ComefaGrid":
         """Stack G equal-shape arrays (state is copied) into one grid.
 
         Accounting carries over where it is well-defined: `io_words`
@@ -218,8 +271,9 @@ class ComefaGrid:
         chain = arrays[0].chain
         assert all(a.n_blocks == nb and a.chain == chain for a in arrays), \
             "grid slots must agree on n_blocks and chain"
-        grid = cls(len(arrays), n_blocks=nb, chain=chain,
-                   engine=arrays[0].engine, device=arrays[0].device)
+        grid = cls(len(arrays), n_blocks=nb, chain=chain, mesh=mesh,
+                   rules=rules, engine=arrays[0].engine,
+                   device=arrays[0].device)
         for g, a in enumerate(arrays):
             grid.mem[g] = a.mem
             grid.carry[g] = a.carry
@@ -310,7 +364,15 @@ class ComefaGrid:
             sp.set(engine=engine.name, makespan=longest,
                    min_slot_cycles=min(counts), padded_to=t_pad)
             self._ensure_device()
-            self._dev = engine.run_per_slot(self._dev, stack, self.chain)
+            if self.mesh is None:
+                self._dev = engine.run_per_slot(self._dev, stack,
+                                                self.chain)
+            else:
+                # each rank runs its own slots' programs
+                lo, n = self._local_slots()
+                mine = np.ascontiguousarray(stack[lo:lo + n])
+                self._on_shards(lambda st: engine.run_per_slot(
+                    st, mine, self.chain))
             self.cycles += longest
             self.dispatches += 1
             block._DISPATCHES.inc(kind="grid", engine=engine.name)
@@ -321,10 +383,34 @@ class ComefaGrid:
     def _ensure_device(self) -> None:
         if self._dev is not None:
             return
-        self._dev = self.engine.to_device(self._mem, self._carry,
-                                          self._mask, self.device)
+        dev = self.engine.to_device(self._mem, self._carry, self._mask,
+                                    self.device)
+        if self.mesh is not None:
+            # every rank holds the same host state and keeps its slots (a
+            # local cut, no collective)
+            mem_at, latch_at, _ = self._where
+            dev = tuple(shd.place(x, self.mesh, at) for x, at in
+                        zip(dev, (mem_at, latch_at, latch_at)))
+        self._dev = dev
         self.device_puts += 1
         block._DEVICE_PUTS.inc(kind="grid")
+
+    def _local_slots(self) -> Tuple[int, int]:
+        """(first slot, slot count) that this rank holds."""
+        shape, offset = compute_local_shape_and_global_offset(
+            (self.g, self.n_blocks, N_ROWS, engine_packed.N_WORDS),
+            self.mesh, self._where[0])
+        return int(offset[0]), int(shape[0])
+
+    def _on_shards(self, fn) -> None:
+        """``fn(state)`` (an engine call that updates the state in place)
+        on each rank's own slots, through `local_map`."""
+        mem_at, latch_at, _ = self._where
+        self._dev = local_map(
+            lambda m, c, k: tuple(fn((m, c, k))),
+            out_placements=(mem_at, latch_at, latch_at),
+            in_placements=(mem_at, latch_at, latch_at),
+            device_mesh=self.mesh)(*self._dev)
 
     def _dispatch(self, mat: np.ndarray) -> int:
         if mat.shape[0] == 0:
@@ -333,7 +419,10 @@ class ComefaGrid:
         with obs_trace.span("grid.dispatch", engine=engine.name,
                             slots=self.g, cycles=int(mat.shape[0])):
             self._ensure_device()
-            self._dev = engine.run(self._dev, mat, self.chain)
+            if self.mesh is None:
+                self._dev = engine.run(self._dev, mat, self.chain)
+            else:
+                self._on_shards(lambda st: engine.run(st, mat, self.chain))
         self.cycles += int(mat.shape[0])
         self.dispatches += 1
         block._DISPATCHES.inc(kind="grid", engine=engine.name)
@@ -344,3 +433,49 @@ class ComefaGrid:
     def __repr__(self):
         return (f"ComefaGrid({self.g} slots x {self.n_blocks} blocks, "
                 f"chain={self.chain}, {self.cycles} cycles)")
+
+
+# ---------------------------------------------------------------------------
+# sharding the grid axis (parallel/sharding.py rule machinery)
+# ---------------------------------------------------------------------------
+
+def grid_mesh(devices=None, device="cuda") -> DeviceMesh:
+    """A 1-D ``("data",)`` mesh for grid-axis sharding over `devices`
+    (ranks of the running group; all of them by default), on `device`'s
+    type.  Without a running group it starts a one-rank one (NCCL on a
+    card, gloo on the CPU), as `launch.mesh.make_host_mesh` does."""
+    from ...launch import mesh as mesh_mod      # launch imports kernels
+    dev = block.resolve_device(device)
+    mesh_mod._ensure_group(dev)
+    if devices is None:
+        return init_device_mesh(dev.type, (dist.get_world_size(),),
+                                mesh_dim_names=("data",))
+    return DeviceMesh(dev.type, [int(r) for r in devices],
+                      mesh_dim_names=("data",))
+
+
+def grid_shardings(mesh: DeviceMesh, g: int, n_blocks: int,
+                   rules=None) -> Tuple:
+    """(mem, latch, program) `DTensor` placements for the packed grid
+    state: mem ``[g, n_blocks, 128, 5]``, carry and mask ``[g, n_blocks,
+    5]``, and the program matrix.
+
+    The grid axis carries the logical name ``"grid"`` and resolves
+    through the same rules table the model layers use
+    (`parallel.sharding.spec_for`, restricted to this mesh's axes); all
+    other dims replicate, and the program is fully replicated (every
+    rank's FSM broadcasts the same stream).  Dimension-aware pruning
+    (`shardings_pruned`) degrades a grid that doesn't divide the rank
+    count to replication, like every other ragged axis in the codebase.
+    """
+    grid_part = tuple(shd.spec_for(("grid",), rules,
+                                   mesh_axes=mesh.mesh_dim_names))
+    specs = [grid_part + (None,) * 3, grid_part + (None,) * 2]
+    structs = [
+        torch.empty((g, n_blocks, N_ROWS, engine_packed.N_WORDS),
+                    dtype=torch.int32, device="meta"),
+        torch.empty((g, n_blocks, engine_packed.N_WORDS),
+                    dtype=torch.int32, device="meta"),
+    ]
+    mem_at, latch_at = shd.shardings_pruned(mesh, specs, structs)
+    return (mem_at, latch_at, (Replicate(),) * mesh.ndim)

@@ -126,6 +126,22 @@ def bitplane_matmul_plain(x: torch.Tensor, planes: torch.Tensor,
     return y.to(out_dtype)
 
 
+@torch.library.custom_op("repro_torch::bitplane_matmul", mutates_args=())
+def shape_only(x: torch.Tensor, planes: torch.Tensor, scale: torch.Tensor,
+               bits: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's call on meta tensors, as one op with the kernel's
+    inputs and output, so that the launch tools' analysis
+    (`launch.dryrun`) counts its bytes and work where a card would run
+    the kernel.  Only its shape function (below) ever runs."""
+    raise RuntimeError("repro_torch::bitplane_matmul takes meta tensors "
+                       "only; bitplane_matmul launches the kernel")
+
+
+@shape_only.register_fake
+def _(x, planes, scale, bits, out_dtype):
+    return x.new_empty((x.shape[0], planes.shape[2]), dtype=out_dtype)
+
+
 def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
                     scale: torch.Tensor, *, bits: int,
                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -134,10 +150,13 @@ def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
 
     CPU tensors take `bitplane_matmul_plain`; CUDA tensors launch the
     kernel on the current stream (no synchronisation) and raise if the
-    launch fails.
+    launch fails; meta tensors (shapes only, no data) give the output's
+    shape through `shape_only`, and launch nothing.
     """
     global launches
     _check(x, planes, scale, bits, out_dtype)
+    if x.device.type == "meta":
+        return shape_only(x, planes, scale, bits, out_dtype)
     if x.device.type == "cpu":
         return bitplane_matmul_plain(x, planes, scale, bits=bits,
                                      out_dtype=out_dtype)

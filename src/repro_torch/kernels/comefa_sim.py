@@ -331,7 +331,8 @@ def comefa_fir(taps: np.ndarray, x: np.ndarray, *, tap_bits: int,
 
 def comefa_gemm_batched(a: np.ndarray, b: np.ndarray, *, bits: int,
                         n_blocks: int = 1, optimized: bool = True,
-                        engine=None, device="cuda") -> np.ndarray:
+                        mesh=None, engine=None,
+                        device="cuda") -> np.ndarray:
     """C[g] = a[g] @ b[g] for G independent same-shape GEMMs on ONE grid.
 
     a: [G, m, k], b: [G, k, n] unsigned ints below 2**bits.  Every grid
@@ -339,17 +340,19 @@ def comefa_gemm_batched(a: np.ndarray, b: np.ndarray, *, bits: int,
     programs depend only on the shape, so all G slots execute the same
     instruction stream per tile (one grid dispatch instead of a Python
     loop of G `ComefaArray.run` calls) and the per-slot results are
-    bit-identical to G separate `comefa_gemm` calls.
+    bit-identical to G separate `comefa_gemm` calls.  Pass `mesh`
+    (`grid.grid_mesh`) to shard the grid axis over its ranks.
     """
     a = np.asarray(a)
     b = np.asarray(b)
     assert a.ndim == 3 and b.ndim == 3 and a.shape[0] == b.shape[0]
     assert a.shape[2] == b.shape[1]
     return _gemm_on_grid(a, b, bits, n_blocks, optimized, engine,
-                         device)[0]
+                         device, mesh)[0]
 
 
-def _gemm_on_grid(a, b, bits, n_blocks, optimized, engine, device):
+def _gemm_on_grid(a, b, bits, n_blocks, optimized, engine, device,
+                  mesh=None):
     """The tiled GEMM of `comefa_gemm` in every slot of one grid.
 
     Each tile's operands span every lane of the chain
@@ -365,7 +368,7 @@ def _gemm_on_grid(a, b, bits, n_blocks, optimized, engine, device):
     plan = schedule.plan_gemm(m, k, n, bits, n_blocks=n_blocks)
     nb = plan.n_blocks
     assert plan.lane_span == nb * N_COLS
-    grid = ComefaGrid(G, n_blocks=nb, chain=True, engine=engine,
+    grid = ComefaGrid(G, n_blocks=nb, chain=True, mesh=mesh, engine=engine,
                       device=device)
     out = np.empty((G, plan.n_outputs), dtype=np.int64)
     for tile in plan.tiles():
@@ -539,7 +542,7 @@ def comefa_gemv_batched(w, x: np.ndarray, *, w_bits: int,
                         x_bits: int, acc_bits: int = 32,
                         optimized: bool = True,
                         recode: Optional[str] = None,
-                        stats: Optional[Dict] = None,
+                        stats: Optional[Dict] = None, mesh=None,
                         engine=None, device="cuda") -> np.ndarray:
     """y[g] = w[g].T @ x[g] for G independent GEMVs on ONE grid dispatch.
 
@@ -573,8 +576,9 @@ def comefa_gemv_batched(w, x: np.ndarray, *, w_bits: int,
     per-slot lockstep / makespan count) and the executed ``mode``
     ("broadcast" or "per_slot"); the same count also lands in the
     ``comefa.kernel_cycles`` counter (labels ``kernel="gemv_batched"``,
-    ``mode``) of the `repro_torch.obs.metrics` registry.  Returns int64
-    ``[G, n]`` on the host.
+    ``mode``) of the `repro_torch.obs.metrics` registry.  Pass `mesh`
+    (`grid.grid_mesh`) to shard the grid axis over its ranks.  Returns
+    int64 ``[G, n]`` on the host.
     """
     x = np.asarray(x)
     if not isinstance(w, StagedWeights):
@@ -598,7 +602,7 @@ def comefa_gemv_batched(w, x: np.ndarray, *, w_bits: int,
         return _comefa_gemv_per_slot(w, x, w_bits=w_bits, x_bits=x_bits,
                                      acc_bits=acc_bits, optimized=optimized,
                                      recode=recode, choices=choices,
-                                     stats=stats, engine=engine,
+                                     stats=stats, mesh=mesh, engine=engine,
                                      device=device)
     k_tile = gemv_batched_k_tile(w_bits, x_bits, acc_bits)
     if k_tile < 1:
@@ -610,7 +614,7 @@ def comefa_gemv_batched(w, x: np.ndarray, *, w_bits: int,
                                      k_tile=min(k, k_tile))
     assert plan.n_blocks == w.n_blocks
     x_rows = _gemv_batched_layout(plan)
-    grid = ComefaGrid(G, n_blocks=plan.n_blocks, engine=engine,
+    grid = ComefaGrid(G, n_blocks=plan.n_blocks, mesh=mesh, engine=engine,
                       device=device)
     assert ((0 <= x) & (x < (1 << x_bits))).all()
     # every slot's activation bits as whole-row words: bit b of x[g, j]
@@ -649,7 +653,7 @@ def comefa_gemv_batched(w, x: np.ndarray, *, w_bits: int,
 def _comefa_gemv_per_slot(w: StagedWeights, x: np.ndarray, *, w_bits: int,
                           x_bits: int, acc_bits: int, optimized: bool,
                           recode: str, choices=None,
-                          stats: Optional[Dict] = None,
+                          stats: Optional[Dict] = None, mesh=None,
                           engine=None, device="cuda") -> np.ndarray:
     """Per-slot-stream batched GEMV (`comefa_gemv_batched(recode=...)`).
 
@@ -666,7 +670,7 @@ def _comefa_gemv_per_slot(w: StagedWeights, x: np.ndarray, *, w_bits: int,
     plan = schedule.cached_plan_gemv(k, n, w_bits, x_bits, acc_bits,
                                      reserve_neg=reserve)
     assert plan.n_blocks == w.n_blocks
-    grid = ComefaGrid(G, n_blocks=plan.n_blocks, engine=engine,
+    grid = ComefaGrid(G, n_blocks=plan.n_blocks, mesh=mesh, engine=engine,
                       device=device)
     costs = [[] for _ in range(G)]
     with obs_trace.span("kernel.gemv_batched", slots=G, k=k, n=n,

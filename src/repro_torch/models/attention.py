@@ -11,9 +11,12 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..parallel import sharding as shd
 from ..parallel.sharding import constrain
+from ..parallel.sharding import reshape as shd_reshape
 from . import common as cm
 from .common import Config
 
@@ -54,7 +57,7 @@ def specs(cfg: Config) -> dict:
 
 
 def _split_heads(x, n, hd):
-    return x.reshape(*x.shape[:-1], n, hd)
+    return shd_reshape(x, *x.shape[:-1], n, hd)
 
 
 def _qkv(params: Attention, x, cfg: Config, positions):
@@ -76,11 +79,18 @@ def _sdpa(q, k, v, mask, cfg: Config):
     [b, s, kv, groups, d] reshape as the JAX code.  Logits are taken in
     f32 (the operands are cast up, which equals the JAX f32-accumulated
     product of bf16 operands), masked to -1e30, softmaxed in f32 and cast
-    to v's dtype before the second product.
+    to v's dtype before the second product.  Placed operands (`DTensor`s)
+    run it on each rank's shards (`_sdpa_placed`), but for a KV cache
+    sharded along T (the ``cache_seq`` rule, flash-decoding style), whose
+    products and softmax run as `DTensor` ops so that the cache is never
+    gathered.
     """
-    groups = cfg.n_heads // k.shape[2]
+    if isinstance(q, DTensor) and not (
+            isinstance(k, DTensor) and Shard(1) in k.placements):
+        return _sdpa_placed(q, k, v, mask, cfg)
+    groups = q.shape[2] // k.shape[2]
     b, s, hq, d = q.shape
-    qg = q.reshape(b, s, k.shape[2], groups, d)
+    qg = shd_reshape(q, b, s, k.shape[2], groups, d)
     logits = torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32),
                           k.to(torch.float32))
     logits = logits / math.sqrt(d)
@@ -93,7 +103,44 @@ def _sdpa(q, k, v, mask, cfg: Config):
         logits = logits.masked_fill(~mask, -1e30)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
-    return out.reshape(b, s, hq, d)
+    return shd_reshape(out, b, s, hq, d)
+
+
+def _sdpa_placed(q: DTensor, k, v, mask, cfg: Config) -> DTensor:
+    """`_sdpa` on each rank's shards through `local_map`: every pair of
+    query and key rows and every head group lies on one rank.  On each
+    mesh dim the batch stays sharded where q's is, the heads where q's
+    and the KV heads are and the ranks divide the KV heads (so each
+    rank's query heads read its own KV heads); the sequence and cache
+    axes, and anything else, are gathered first."""
+    mesh = q.device_mesh
+    k = k if isinstance(k, DTensor) else DTensor.from_local(
+        k, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    qp, kp, mp = [], [], []
+    for size, pq, pk in zip(mesh.shape, q.placements, k.placements):
+        if pq == Shard(0) and pk == Shard(0):
+            qp.append(Shard(0))
+            kp.append(Shard(0))
+            mp.append(Shard(0) if mask is not None and mask.dim() == 3
+                      else Replicate())
+        elif pq == Shard(2) and pk in (Shard(2), Replicate()) and \
+                k.shape[2] % size == 0:
+            qp.append(Shard(2))
+            kp.append(Shard(2))
+            mp.append(Replicate())
+        else:
+            qp += [Replicate()]
+            kp += [Replicate()]
+            mp += [Replicate()]
+    if mask is not None and not isinstance(mask, DTensor):
+        mask = DTensor.from_local(mask, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    return local_map(
+        lambda ql, kl, vl, ml: _sdpa(ql, kl, vl, ml, cfg),
+        out_placements=list(qp),
+        in_placements=(tuple(qp), tuple(kp), tuple(kp),
+                       None if mask is None else tuple(mp)),
+        device_mesh=mesh, redistribute_inputs=True)(q, k, v, mask)
 
 
 def causal_mask(s: int, dev, window: int = 0,
@@ -182,7 +229,7 @@ def apply(params: Attention, x: torch.Tensor, cfg: Config, *,
             mask = causal_mask(s, x.device, prefix_len=prefix_len)
         out = _sdpa(q, k, v, mask, cfg)
     out = constrain(out, ("batch", "seq", "heads", None))
-    return cm.linear(params.wo, out.reshape(b, s, -1))
+    return cm.linear(params.wo, shd_reshape(out, b, s, -1))
 
 
 def apply_cross(params: Attention, x: torch.Tensor, ctx: torch.Tensor,
@@ -196,7 +243,7 @@ def apply_cross(params: Attention, x: torch.Tensor, ctx: torch.Tensor,
     k = _split_heads(cm.linear(params.wk, ctx), cfg.kv_heads, cfg.hd)
     v = _split_heads(cm.linear(params.wv, ctx), cfg.kv_heads, cfg.hd)
     out = _sdpa(q, k, v, None, cfg)
-    return cm.linear(params.wo, out.reshape(b, s, -1))
+    return cm.linear(params.wo, shd_reshape(out, b, s, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -255,5 +302,5 @@ def decode_step(params: Attention, x: torch.Tensor,
     valid = torch.arange(t, device=x.device)[None, None, :] <= \
         idx[:, None, None]
     out = _sdpa(q, k, v, valid, cfg)
-    out = cm.linear(params.wo, out.reshape(b, 1, -1))
+    out = cm.linear(params.wo, shd_reshape(out, b, 1, -1))
     return out, cache

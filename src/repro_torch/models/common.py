@@ -21,6 +21,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..kernels import ops as kops
+from ..parallel import sharding as shd
 from ..quant import bitplane
 
 @dataclasses.dataclass(frozen=True)
@@ -203,7 +204,7 @@ def linear(params: PackedLinear, x: torch.Tensor) -> torch.Tensor:
     what the JAX kernel branch's casts around its f32 kernel give.
     """
     if params.w is not None:
-        return x @ params.w.to(x.dtype)
+        return shd.contiguous_grad(x @ params.w.to(x.dtype))
     packed, scale = params.packed, params.scale
     bits = packed.shape[0]
     lead = x.shape[:-1]

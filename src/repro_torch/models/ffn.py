@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..parallel.sharding import constrain
+from ..parallel.sharding import reshape as rs
 from . import common as cm
 from .common import Config
 
@@ -106,9 +107,9 @@ def route(router_w: torch.Tensor, xg: torch.Tensor, cfg: Config,
                                         min=1e-9)
     onehot = nn.functional.one_hot(expert_idx, e).to(torch.float32)
     # priority: choice 0 of all tokens first, then choice 1 (GShard)
-    flat = onehot.transpose(1, 2).reshape(n, k * g, e)
+    flat = rs(onehot.transpose(1, 2), n, k * g, e)
     pos_flat = torch.cumsum(flat, dim=1) - flat
-    pos = pos_flat.reshape(n, k, g, e).transpose(1, 2)
+    pos = rs(pos_flat, n, k, g, e).transpose(1, 2)
     pos = torch.sum(pos * onehot, dim=-1).to(torch.int32)
     keep = pos < capacity
     return probs, gate_vals * keep, expert_idx, pos, keep
@@ -119,11 +120,11 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: Config
     """Returns (output [B, S, D], the Switch load-balancing aux loss)."""
     b, s, d = x.shape
     e = cfg.n_experts
-    tokens = x.reshape(-1, d)
+    tokens = rs(x, -1, d)
     t = tokens.shape[0]
     g = cfg.moe_group if t % cfg.moe_group == 0 else t   # fallback: 1 group
     n = t // g
-    xg = constrain(tokens.reshape(n, g, d), ("batch", None, "embed"))
+    xg = constrain(rs(tokens, n, g, d), ("batch", None, "embed"))
     capacity = int(g * cfg.top_k * cfg.capacity_factor / e) + 1
     probs, gates, expert_idx, pos, keep = route(params.router["w"], xg, cfg,
                                                 capacity)
@@ -139,20 +140,20 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: Config
     # expert products over every expert's slots: [e, n*c, d] batches
     xe = torch.einsum("ngec,ngd->necd", disp, xg)
     xe = constrain(xe, ("moe_tokens", "expert", None, None))
-    xe = xe.transpose(0, 1).reshape(e, n * capacity, d)
+    xe = rs(xe.transpose(0, 1), e, n * capacity, d)
     act = cm.activation(cfg.act)
     h = act(torch.matmul(xe, params.wg.to(x.dtype))) * \
         torch.matmul(xe, params.wi.to(x.dtype))
-    h = constrain(h.reshape(e, n, capacity, -1).transpose(0, 1),
+    h = constrain(rs(h, e, n, capacity, -1).transpose(0, 1),
                   ("moe_tokens", "expert", None, "expert_mlp"))
-    h = h.transpose(0, 1).reshape(e, n * capacity, -1)
+    h = rs(h.transpose(0, 1), e, n * capacity, -1)
     ye = torch.matmul(h, params.wo.to(x.dtype))          # [e, n*c, d]
-    ye = ye.reshape(e, n, capacity, d).transpose(0, 1)  # [n, e, c, d]
+    ye = rs(ye, e, n, capacity, d).transpose(0, 1)     # [n, e, c, d]
     # placed: the expert sums (Partial over "model") are reduced here, as
     # `DTensor`'s einsum cannot flatten an unevenly sharded capacity dim
     ye = constrain(ye, ("moe_tokens", "expert", None, None))
     y = torch.einsum("ngec,necd->ngd", comb, ye)
-    out = y.reshape(b, s, d)
+    out = rs(y, b, s, d)
 
     # load-balancing aux loss (Switch): mean(frac_tokens * frac_router_prob)
     frac_tokens = nn.functional.one_hot(expert_idx[:, :, 0], e).to(

@@ -44,6 +44,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from ..parallel import sharding as shd
 from ..parallel.sharding import constrain
 from . import attention as attn
 from . import common as cm
@@ -340,7 +341,7 @@ def _embed_tokens(params: LM, tokens, cfg: Config):
                            dtype=torch.float32).to(e.dtype))
     # a row gather whose backward sums in a fixed order on the CPU too
     # (indexing's backward, an accumulating index_put, does not there)
-    return (nn.functional.embedding(tokens, e) * s).to(cfg.adtype)
+    return (shd.embedding(tokens, e) * s).to(cfg.adtype)
 
 
 def packed_projections(params: LM, encoder: bool = False) -> int:

@@ -34,6 +34,8 @@ from torch.nn import functional as F
 
 from ..parallel import sharding as shd
 from ..parallel.sharding import constrain
+from ..parallel.sharding import pointwise
+from ..parallel.sharding import reshape as rs
 from . import common as cm
 from .common import Config
 
@@ -98,7 +100,7 @@ def mlstm_specs(cfg: Config) -> dict:
 
 def _mlstm_gates(params: MLSTM, x):
     xf = x.to(torch.float32)
-    f = F.logsigmoid(xf @ params.wf["w"] + params.wf["b"])   # log forget
+    f = pointwise(F.logsigmoid, xf @ params.wf["w"] + params.wf["b"])  # log f
     i = xf @ params.wi["w"] + params.wi["b"]
     return f, i
 
@@ -116,18 +118,18 @@ def mlstm_apply(params: MLSTM, x: torch.Tensor, cfg: Config) -> torch.Tensor:
     h, hd = cfg.n_heads, cfg.hd
     nq = max(1, s // CHUNK)
     c = s // nq
-    q = cm.linear(params.wq, x).reshape(b, s, h, hd) / math.sqrt(hd)
-    k = cm.linear(params.wk, x).reshape(b, s, h, hd)
-    v = cm.linear(params.wv, x).reshape(b, s, h, hd)
+    q = rs(cm.linear(params.wq, x), b, s, h, hd) / math.sqrt(hd)
+    k = rs(cm.linear(params.wk, x), b, s, h, hd)
+    v = rs(cm.linear(params.wv, x), b, s, h, hd)
     f, i = _mlstm_gates(params, x)                        # [B, S, H]
 
     f32 = torch.float32
-    qc = q.reshape(b, nq, c, h, hd).to(f32)
-    kc = k.reshape(b, nq, c, h, hd).to(f32)
-    vc = v.reshape(b, nq, c, h, hd).to(f32)
+    qc = rs(q, b, nq, c, h, hd).to(f32)
+    kc = rs(k, b, nq, c, h, hd).to(f32)
+    vc = rs(v, b, nq, c, h, hd).to(f32)
     vc = torch.cat([vc, torch.ones_like(vc[..., :1])], -1)   # [.., hd+1]
-    fc = f.reshape(b, nq, c, h)
-    ic = i.reshape(b, nq, c, h)
+    fc = rs(f, b, nq, c, h)
+    ic = rs(i, b, nq, c, h)
     fcum = torch.cumsum(fc, dim=2)                        # within-chunk logs
 
     # intra-chunk: w[t,u] = exp(fcum[t]-fcum[u]+i[u] - m_intra[t]) (q_t.k_u)
@@ -169,10 +171,10 @@ def mlstm_apply(params: MLSTM, x: torch.Tensor, cfg: Config) -> torch.Tensor:
                + inter * torch.exp(m_inter - m_tot)[..., None])
     num, den = num_den[..., :hd], num_den[..., hd]
     denom = torch.maximum(den.abs(), torch.exp(-m_tot))[..., None]
-    out = (num / denom).reshape(b, s, h, hd)
+    out = rs(num / denom, b, s, h, hd)
     out = cm.rmsnorm(params.gn, out.to(x.dtype), cfg.norm_eps)
     out = constrain(out, ("batch", "seq", "heads", None))
-    return cm.linear(params.wo, out.reshape(b, s, -1))
+    return cm.linear(params.wo, rs(out, b, s, -1))
 
 
 def mlstm_state_init(cfg: Config, batch: int, dev) -> State:
@@ -194,9 +196,9 @@ def mlstm_decode(params: MLSTM, x: torch.Tensor, state: State, cfg: Config):
     b = x.shape[0]
     h, hd = cfg.n_heads, cfg.hd
     f32 = torch.float32
-    q = (cm.linear(params.wq, x).reshape(b, h, hd) / math.sqrt(hd)).to(f32)
-    k = cm.linear(params.wk, x).reshape(b, h, hd).to(f32)
-    v = cm.linear(params.wv, x).reshape(b, h, hd).to(f32)
+    q = (rs(cm.linear(params.wq, x), b, h, hd) / math.sqrt(hd)).to(f32)
+    k = rs(cm.linear(params.wk, x), b, h, hd).to(f32)
+    v = rs(cm.linear(params.wv, x), b, h, hd).to(f32)
     v = torch.cat([v, torch.ones_like(v[..., :1])], -1)
     f, i = _mlstm_gates(params, x)                        # [B, 1, H]
     logf, ig = f[:, 0], i[:, 0]
@@ -209,7 +211,7 @@ def mlstm_decode(params: MLSTM, x: torch.Tensor, state: State, cfg: Config):
     num, den = nd[..., :hd], nd[..., hd]
     out = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
     out = cm.rmsnorm(params.gn, out[:, None].to(x.dtype), cfg.norm_eps)
-    y = cm.linear(params.wo, out.reshape(b, 1, -1))
+    y = cm.linear(params.wo, rs(out, b, 1, -1))
     return y, _update(state, {"S": S, "m": m_new})
 
 
@@ -252,19 +254,18 @@ def slstm_apply(params: SLSTM, x: torch.Tensor, cfg: Config,
     state comes back too, written into `state` when one was given."""
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.hd
-    pre = (cm.linear(params.wx, x).to(torch.float32)
-           + params.b).reshape(b, s, h, 4, hd)
+    pre = rs(cm.linear(params.wx, x).to(torch.float32) + params.b,
+             b, s, h, 4, hd)
     carry = state if state is not None else \
         slstm_state_init(cfg, b, x.device)
     c, n, hid, m = carry["c"], carry["n"], carry["h"], carry["m"]
     hs = []
     for t in range(s):
-        rec = torch.einsum("bhd,hdk->bhk", hid, params.r).reshape(
-            b, h, 4, hd)
+        rec = rs(torch.einsum("bhd,hdk->bhk", hid, params.r), b, h, 4, hd)
         z, i, f, o = (pre[:, t] + rec).unbind(2)
         zt = torch.tanh(z)
         ot = torch.sigmoid(o)
-        logf = F.logsigmoid(f)
+        logf = pointwise(F.logsigmoid, f)
         m_new = torch.maximum(logf + m, i)                # stabilizer
         ig = torch.exp(i - m_new)
         fg = torch.exp(logf + m - m_new)
@@ -275,7 +276,7 @@ def slstm_apply(params: SLSTM, x: torch.Tensor, cfg: Config,
         hs.append(hid)
     hs = torch.stack(hs, dim=1)                           # [B, S, H, hd]
     hs = cm.rmsnorm(params.gn, hs.to(x.dtype), cfg.norm_eps)
-    y = cm.linear(params.wo, hs.reshape(b, s, -1))
+    y = cm.linear(params.wo, rs(hs, b, s, -1))
     if not return_state:
         return y
     new = {"c": c, "n": n, "h": hid, "m": m}

@@ -33,8 +33,11 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import (DTensor, Placement, Replicate, Shard,
-                                      distribute_tensor)
+from torch.distributed.tensor import (DTensor, Partial, Placement,
+                                      Replicate, Shard, distribute_tensor)
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
 
 Rules = Dict[str, Optional[Tuple[str, ...]]]
 Spec = Tuple[Any, ...]
@@ -114,8 +117,12 @@ def spec_for(logical_axes: Sequence[Optional[str]],
 
 
 def _is_axes(x) -> bool:
-    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
-                                        for a in x)
+    """A leaf of a spec tree: logical names, or a spec, whose entries may
+    be tuples of mesh axes (``("pod", "data")`` on a multi-pod mesh)."""
+    return isinstance(x, tuple) and all(
+        a is None or isinstance(a, str) or (
+            isinstance(a, tuple) and all(isinstance(b, str) for b in a))
+        for a in x)
 
 
 def tree_map(fn, tree, *rest, is_leaf=_is_axes):
@@ -197,10 +204,10 @@ def place(x: torch.Tensor, mesh: DeviceMesh,
           where: Sequence[Placement]) -> DTensor:
     """`x` as a `DTensor` on `mesh` with placements `where`; a `DTensor`
     is redistributed, a plain tensor (the same values on every rank)
-    is cut into this rank's shard."""
+    is cut into this rank's shard locally, with no collective."""
     if isinstance(x, DTensor):
         return x.redistribute(mesh, tuple(where))
-    return distribute_tensor(x, mesh, tuple(where))
+    return distribute_tensor(x, mesh, tuple(where), src_data_rank=None)
 
 
 def place_module(module: torch.nn.Module, mesh: DeviceMesh,
@@ -233,6 +240,132 @@ def constrain(x: torch.Tensor, logical_axes: Sequence[Optional[str]],
                                 mesh_axes=mesh.mesh_dim_names),
                        tuple(x.shape), mesh_shape(mesh))
     return x.redistribute(mesh, placements(mesh, spec))
+
+
+def reshape(x: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``x.reshape(*shape)``.  A `DTensor` whose sharding the reshape
+    cannot keep (a sharded dim split into parts that its ranks do not
+    divide, as 15 heads on a 16-wide model axis) first has every dim from
+    the first changed one on replicated, as XLA reshards there; and its
+    gradient is brought back to the result's placements, contiguous,
+    before the reshape's backward (`_GradLike`), which would otherwise
+    meet the same split.  A plain tensor is reshaped as it is."""
+    if not isinstance(x, DTensor):
+        return x.reshape(*shape)
+    x = _local_contiguous(x)  # DTensor's reshape views each local shard
+    try:
+        y = x.reshape(*shape)
+    except RuntimeError:      # DTensor's view rules refuse or mis-split
+        keep = 0
+        while keep < min(x.dim(), len(shape)) and \
+                x.shape[keep] == shape[keep]:
+            keep += 1
+        where = [Replicate() if p.is_shard() and p.dim >= keep else p
+                 for p in x.placements]
+        y = x.redistribute(x.device_mesh, where).reshape(*shape)
+    return _GradLike.apply(y)
+
+
+def embedding(tokens: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, e)``.  A `DTensor` table looks up on each
+    rank's shards (`local_map`): where the vocab is sharded, each rank
+    gathers the rows it holds, zeroes the others, and the output is a
+    partial sum (one nonzero row a token, so exact); where the tokens'
+    batch is sharded, the table is gathered there and the output keeps
+    the batch's sharding; an embed dim shard stays one.  This is the
+    vocab-parallel lookup of `DTensor`'s own rule without its masked
+    placement, whose mask some torch releases lose on the way to the
+    reduction."""
+    if not isinstance(e, DTensor):
+        return torch.nn.functional.embedding(tokens, e)
+    mesh = e.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tok_at, e_at, out_at = [], [], []
+    for pt, pe in zip(tokens.placements, e.placements):
+        if pt.is_shard(0):
+            tok_at.append(Shard(0))
+            e_at.append(Replicate())
+            out_at.append(Shard(0))
+        elif pe.is_shard(0):
+            tok_at.append(Replicate())
+            e_at.append(Shard(0))
+            out_at.append(Partial())
+        elif pe.is_shard(1):
+            tok_at.append(Replicate())
+            e_at.append(Shard(1))
+            out_at.append(Shard(tokens.dim()))
+        else:
+            tok_at.append(Replicate())
+            e_at.append(Replicate())
+            out_at.append(Replicate())
+    shape, offset = compute_local_shape_and_global_offset(
+        tuple(e.shape), mesh, e_at)
+    lo, n = int(offset[0]), int(shape[0])
+    vocab_split = any(p.is_partial() for p in out_at)
+
+    def lookup(tl, el):
+        if not vocab_split:
+            return torch.nn.functional.embedding(tl, el)
+        idx = tl - lo
+        held = (idx >= 0) & (idx < n)
+        rows = torch.nn.functional.embedding(idx.clamp(0, n - 1), el)
+        return rows * held[..., None].to(rows.dtype)
+    # the table's gradient from a rank's slice of the batch is a partial
+    # sum over the ranks that split the batch
+    e_grad_at = [Partial() if pt == Shard(0) else pe
+                 for pt, pe in zip(tok_at, e_at)]
+    return local_map(lookup, out_placements=out_at,
+                     in_placements=(tuple(tok_at), tuple(e_at)),
+                     in_grad_placements=(tuple(tok_at), tuple(e_grad_at)),
+                     device_mesh=mesh, redistribute_inputs=True)(tokens, e)
+
+
+def contiguous_grad(y: torch.Tensor) -> torch.Tensor:
+    """y; a `DTensor`'s gradient reaches the op that made it in y's
+    placements and contiguous (`_GradLike`), where `DTensor`'s backward
+    of a product views it.  A plain tensor comes back as it is."""
+    return _GradLike.apply(y) if isinstance(y, DTensor) else y
+
+
+def pointwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise `fn`; a `DTensor` runs it on each
+    rank's shard (a partial sum is reduced first), for ops that
+    `DTensor` has no sharding rule for (``log_sigmoid_backward``)."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    where = [Replicate() if p.is_partial() else p for p in x.placements]
+    return local_map(fn, out_placements=where, in_placements=(tuple(where),),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(x)
+
+
+class _GradLike(torch.autograd.Function):
+    """Identity forward; backward brings the gradient to the forward
+    value's placements, contiguous, before it meets a reshape's backward
+    (a view, which a transposed or unevenly split gradient refuses)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        # the gradient of a partial sum is replicated
+        ctx.mesh = y.device_mesh
+        ctx.where = tuple(Replicate() if p.is_partial() else p
+                          for p in y.placements)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor):
+            return _local_contiguous(g.redistribute(ctx.mesh, ctx.where))
+        return g.contiguous()
+
+
+def _local_contiguous(x: DTensor) -> DTensor:
+    """x with a contiguous local shard (`DTensor.contiguous` looks at the
+    global layout only)."""
+    if x._local_tensor.is_contiguous():
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

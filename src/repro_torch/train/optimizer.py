@@ -27,7 +27,7 @@ from typing import Dict, Tuple
 import torch
 from torch.nn import functional as F
 
-from ..parallel.sharding import like
+from ..parallel.sharding import like, reshape
 
 BLOCK = 256
 
@@ -81,26 +81,26 @@ def _q8_encode(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     [..., ceil(last / BLOCK)])."""
     last = v.shape[-1]
     nb = -(-last // BLOCK)
-    blocks = F.pad(v, (0, nb * BLOCK - last)).reshape(*v.shape[:-1], nb,
-                                                       BLOCK)
+    blocks = reshape(F.pad(v, (0, nb * BLOCK - last)), *v.shape[:-1], nb,
+                     BLOCK)
     vmax = torch.clamp(blocks.amax(dim=-1), min=1e-30)
     lo = torch.log2(vmax) - V_SPAN_OCTAVES
     rel = torch.log2(_ftz(blocks)) - lo[..., None]
     q = torch.clamp(torch.round(rel * (255.0 / V_SPAN_OCTAVES)) - 128,
                     -128, 127)
-    q = q.reshape(*v.shape[:-1], nb * BLOCK)[..., :last].to(torch.int8)
+    q = reshape(q, *v.shape[:-1], nb * BLOCK)[..., :last].to(torch.int8)
     return q, lo.to(torch.float32)
 
 
 def _q8_decode(q: torch.Tensor, lo: torch.Tensor, shape) -> torch.Tensor:
     last = shape[-1]
     nb = lo.shape[-1]
-    blocks = F.pad(q, (0, nb * BLOCK - last)).reshape(
-        *shape[:-1], nb, BLOCK).to(torch.float32)
+    blocks = reshape(F.pad(q, (0, nb * BLOCK - last)), *shape[:-1], nb,
+                     BLOCK).to(torch.float32)
     logv = (blocks + 128.0) * (V_SPAN_OCTAVES / 255.0) + lo[..., None]
     # exact zeros (fresh state) decode to the span floor ~ vmax*2^-40 ~ 0
     v = _ftz(torch.exp2(logv))
-    return v.reshape(*shape[:-1], nb * BLOCK)[..., :last]
+    return reshape(v, *shape[:-1], nb * BLOCK)[..., :last]
 
 
 def init_state(params: Tree, cfg: AdamWConfig) -> State:

@@ -133,7 +133,7 @@ def train_step(state: Dict[str, Any], batch: Batch, cfg: Config,
                    **metrics}
 
 
-def _place_state(mesh, sspecs, state: Dict[str, Any]) -> None:
+def place_state(mesh, sspecs, state: Dict[str, Any]) -> None:
     """Place the train state on `mesh` by its specs, in place: the
     model's params as `DTensor` params (their gradients stay on), the
     moments and the step alike; a no-op once placed."""
@@ -168,13 +168,18 @@ def make_jitted_train_step(mesh, cfg: Config, tcfg: TrainConfig,
     if mesh.size() == 1:
         return functools.partial(train_step, cfg=cfg, tcfg=tcfg)
     sspecs = shd.tree_specs(state_specs(cfg, tcfg), rules)
-    bwhere = shd.shardings(mesh, shd.tree_specs(batch_specs(), rules))
+    bspecs = batch_specs()
 
     def fn(state: Dict[str, Any], batch: Batch):
         with implicit_replication():
-            _place_state(mesh, sspecs, state)
+            place_state(mesh, sspecs, state)
             dev = state["params"].device
-            batch = {k: shd.place(torch.as_tensor(v).to(dev), mesh,
-                                  bwhere[k]) for k, v in batch.items()}
+            batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+            # a frontend's embeddings [batch, frames, d] ride along by batch
+            where = shd.shardings_pruned(mesh, shd.tree_specs(
+                {k: bspecs.get(k, ("batch", None, None)) for k in batch},
+                rules), batch)
+            batch = {k: shd.place(v, mesh, where[k])
+                     for k, v in batch.items()}
             return train_step(state, batch, cfg, tcfg)
     return fn

@@ -963,3 +963,65 @@ def test_captured_step_keys_graphs_by_state_storage(card_mesh):
     want, _ = lm.decode_step(model, tok, fresh, 0)
     assert torch.equal(lb, want)
     assert not torch.equal(la, lb)
+
+
+# -- training on a mesh and the sharded grid on one card ---------------------
+
+def test_trainer_on_card_mesh_restores_bit_for_bit(card_mesh, tmp_path):
+    """`Trainer(mesh=)` on the (1, 1) card mesh, 4 steps checkpointing
+    every 2, under deterministic algorithms; a second trainer restores
+    step 2 with ``restore(shardings=...)`` and runs to step 4: equal to
+    the first run bit for bit (chip_smoke.py phase 19a at full width)."""
+    import shutil
+
+    from repro_torch.checkpoint import manager
+    from repro_torch.train import loop
+    dev = torch.device("cuda")
+    cfg = cm.reduced(configs.get("smollm-360m"), vocab=512, d_model=128,
+                     d_ff=256, n_layers=2, dtype="bfloat16")
+    tcfg = train_step.TrainConfig(adamw=train_opt.AdamWConfig(
+        lr=3e-3, warmup_steps=2, total_steps=4))
+    data = pipeline.SyntheticLM(pipeline.DataConfig(
+        vocab=cfg.vocab, global_batch=2, seq_len=64, seed=3))
+
+    def trainer(path):
+        lcfg = loop.LoopConfig(total_steps=4, ckpt_every=2,
+                               ckpt_dir=str(path), log_every=100)
+        return loop.Trainer(cfg, tcfg, lcfg, data, mesh=card_mesh,
+                            device=dev)
+    torch.use_deterministic_algorithms(True)
+    try:
+        first = trainer(tmp_path / "a")
+        want = dict(manager.leaves(first.run(first.init_or_restore())))
+        shutil.copytree(tmp_path / "a" / "step_0000000002",
+                        tmp_path / "b" / "step_0000000002")
+        second = trainer(tmp_path / "b")
+        state = second.init_or_restore()
+        assert int(state["step"]) == 2
+        got = dict(manager.leaves(second.run(state)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert all(torch.equal(want[k], got[k]) for k in want)
+
+
+def test_sharded_grid_runs_the_step_kernel(card_mesh):
+    """`comefa_gemv_batched` on a 1-D grid mesh of the card's rank equals
+    the call without a mesh, and every dispatch is a step-kernel launch
+    (chip_smoke.py phase 19b at SmolLM's sizes)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = torch.device("cuda")
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    rng = np.random.default_rng(5)
+    w = rng.integers(0, 256, (96, 200))
+    x = rng.integers(0, 256, (4, 96))
+    out = []
+    for m in (None, mesh):
+        stats = {}
+        before = cs.launches
+        y = comefa_sim.comefa_gemv_batched(w, x, w_bits=8, x_bits=8,
+                                           stats=stats, mesh=m, device=dev)
+        out.append((y, stats, cs.launches - before))
+    (y0, s0, l0), (y1, s1, l1) = out
+    np.testing.assert_array_equal(y1, x @ w)
+    np.testing.assert_array_equal(y0, y1)
+    assert s0 == s1 and l0 == l1 > 0

@@ -32,10 +32,15 @@ def _modules():
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.launch.serve" in mods and len(mods) >= 20
+    assert {f"repro_torch.launch.{m}" for m in (
+        "shapes", "dryrun", "roofline", "report", "hillclimb")} <= set(mods)
+    # importing every module starts no process group either
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))\n"
@@ -86,3 +91,29 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
                        "--batch", "2", "--prompt-len", "3", "--steps", "2"])
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "generated token ids:" and len(lines) == 3
+
+
+def test_new_entry_points_default_to_cuda(tmp_path):
+    """The grid's mesh, a placed grid, the mesh trainer and the train
+    launcher ask for CUDA unless told otherwise, and raise without it;
+    none of them starts a process group on the way."""
+    import torch.distributed as dist
+
+    from repro_torch.core.comefa import grid as grid_mod
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import loop, step
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    with pytest.raises(RuntimeError, match="cuda"):
+        grid_mod.grid_mesh()
+    with pytest.raises(RuntimeError, match="cuda"):
+        grid_mod.ComefaGrid(2)
+    cfg = cm.reduced(lm.Config(name="t", n_layers=1, d_model=64, n_heads=4,
+                               kv_heads=2, d_ff=128, vocab=16))
+    trainer = loop.Trainer(cfg, step.TrainConfig(), loop.LoopConfig(
+        ckpt_dir=str(tmp_path)), None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        trainer.init_or_restore()
+    with pytest.raises(RuntimeError, match="cuda"):
+        launch_train.main(["--reduced", "--steps", "1", "--fsdp"])
+    assert not dist.is_initialized()
