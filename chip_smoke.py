@@ -3404,7 +3404,8 @@ print("TOOLS " + json.dumps(out))
 
 def _start_tools(root):
     """19c's counting, in a process of its own (it starts a fake process
-    group), begun before 19a so that its CPU work overlaps the card's."""
+    group), begun after 19a's timed steps, saves and launcher, so that
+    its CPU work overlaps 19a' and 19b, which time nothing."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     return subprocess.Popen(
         [sys.executable, "-c", TOOLS_SCRIPT, os.path.join(root, "results"),
@@ -3627,7 +3628,7 @@ def phase_sharded_grid(cs, dev):
 
 def phase_tools(proc, train_step_s, smi):
     """(19c) The launch tools' counts of SmolLM-360M's three cells on the
-    fake 16 x 16 mesh (the process started before 19a), and the roofline
+    fake 16 x 16 mesh (the process started after 19a), and the roofline
     bound of phase 17b's step (8 x 2,048 tokens, 2 microbatches) counted
     on a one-rank fake mesh, beside the time 17b measured in this run."""
     try:
@@ -3672,14 +3673,15 @@ def phase_mesh_slice(bpm, cs, ks, dev, smi, train_step_s):
     t0 = time.perf_counter()
     tr = _Training()
     root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    proc = _start_tools(root)
+    proc = None
     try:
         phase_trainer_mesh(tr, dev, smi, root)
+        proc = _start_tools(root)
         phase_gradient_gap(tr, dev)
         launched = phase_sharded_grid(cs, dev)
         phase_tools(proc, train_step_s, smi)
     finally:
-        if proc.poll() is None:
+        if proc is not None and proc.poll() is None:
             proc.kill()
             proc.communicate()
         shutil.rmtree(root, ignore_errors=True)

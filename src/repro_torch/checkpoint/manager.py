@@ -131,8 +131,8 @@ def _barrier() -> None:
 
 def _host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     """A host copy of `t` as a numpy array, and the dtype to record; a
-    `DTensor` is gathered whole first (a collective: every rank calls
-    this for the same leaves in the same order)."""
+    `DTensor` is gathered whole first (a collective: the other ranks
+    meet it in `_gather_only`)."""
     if isinstance(t, DTensor):
         t = t.full_tensor()
     t = t.detach().to("cpu", copy=True).contiguous()
@@ -140,6 +140,14 @@ def _host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
         return t.view(torch.int16).numpy(), "bfloat16"
     a = t.numpy()
     return a, str(a.dtype)
+
+
+def _gather_only(tree: Any) -> None:
+    """A rank that does not write takes part in each leaf's gather, in
+    `_host`'s order, and keeps nothing."""
+    for _, t in leaves(tree):
+        if isinstance(t, DTensor):
+            t.full_tensor()
 
 
 def _from_bytes(buf: bytearray, dtype: str, shape) -> torch.Tensor:
@@ -162,10 +170,14 @@ class CheckpointManager:
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: Any, blocking: bool = True) -> str:
         """Write `tree` as step `step`.  Under a running group every rank
-        calls this: all gather, rank 0 writes, the others wait for it on
-        a barrier (here, or for an async save in `wait`)."""
-        host = [(name, *_host(t)) for name, t in leaves(tree)]
+        calls this: all gather, rank 0 alone keeps a host copy and
+        writes, the others wait for it on a barrier (here, or for an
+        async save in `wait`)."""
         writer = _rank() == 0
+        if writer:
+            host = [(name, *_host(t)) for name, t in leaves(tree)]
+        else:
+            _gather_only(tree)
         if blocking:
             d = self._save_sync(step, host) if writer else \
                 self._step_dir(step)

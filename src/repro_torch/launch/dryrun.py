@@ -18,19 +18,20 @@ real step once (the mesh train step, the prefill forward with
 needed; the group is destroyed on exit, also on error.  It refuses to
 start while a real group is running.
 
+The mode counts below `DTensor`: a `DTensor` op comes to it as the
+local ops it runs on this rank's shards and the collectives of the
+redistributes it needs, as a rank would issue them.  It counts ops on
+meta tensors only: `DTensor`'s sharding propagation runs its own ops
+on fake and small host tensors, which are not the step's.
+
 Each cell records, for one rank, into results/torch/dryrun/<cell>.json:
 
   flops            the matmul and attention FLOPs of `FlopCounterMode`'s
-                   formulas, counted on this rank's work: a `DTensor` op
-                   is priced on its global shapes and scaled by the share
-                   of the output this rank holds, and divided by the mesh
-                   dims on which the output is a partial sum (exact for
-                   products, where the output shard fixes the rank's
-                   share of the work); the bit-plane kernel (#1) counts
-                   2 M K N a call;
-  bytes_accessed   the bytes of every op's inputs and outputs on this
-                   rank's shards, op by op, with no fusion (views move
-                   nothing and count nothing);
+                   formulas on the local ops this rank runs; the
+                   bit-plane kernel (#1) counts 2 M K N a call;
+  bytes_accessed   the bytes of every local op's inputs and outputs, op
+                   by op, with no fusion (views move nothing and count
+                   nothing);
   memory_analysis  argument_bytes: this rank's bytes of the state and the
                    batch; temp_bytes: the peak of the tensors the step
                    makes that are alive at once (this module's own tally,
@@ -44,6 +45,11 @@ Each cell records, for one rank, into results/torch/dryrun/<cell>.json:
   compile_s        the seconds to run the step on meta tensors (the
                    counterpart of XLA's compile).
 
+A train or prefill cell of an arch whose step loops over the tokens
+(xLSTM's sLSTM) is counted at three shorter lengths and at one and two
+pattern periods, and extrapolated to its length and depth
+(`count_cell`, `count_periods`; the JSON's ``counting`` says so).
+
 --reduced takes the arch's reduced config (`models.common.reduced`) and
 --mesh-shape DxM (or PxDxM) a fake mesh of that shape in place of the
 production one, for a quick run; --results DIR writes under DIR.
@@ -51,6 +57,7 @@ production one, for a quick run; --results DIR writes under DIR.
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -69,6 +76,7 @@ from torch.utils.flop_counter import flop_registry
 from .. import configs
 from ..models import common as cm
 from ..models import lm
+from ..models import recurrent
 from ..models.common import Config
 from ..parallel import sharding as shd
 from ..train import optimizer as opt
@@ -116,7 +124,13 @@ COLLECTIVE_KINDS = {
     "send": "collective-permute", "recv": "collective-permute",
     "permute_tensor": "collective-permute", "broadcast": "all-gather",
 }
+# mixers whose step loops over the tokens (the sLSTM recurrence), whose
+# eager count runs the loop's ops once a token: see `count_cell`
+TOKEN_LOOPS = ("slstm",)
 _COLLECTIVE_NS = ("_c10d_functional", "c10d_functional", "_dtensor", "c10d")
+# ops that hand a tensor on without moving it: a collective's wait and
+# its autograd wrapper
+_MOVES_NOTHING = ("wait_tensor", "_wrap_tensor_autograd")
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -173,42 +187,36 @@ class Counter(TorchDispatchMode):
 
     def _flops(self, func, args, kwargs, out) -> float:
         if func is torch.ops.repro_torch.bitplane_matmul.default:
-            x, planes = _local(args[0]), _local(args[1])
+            x, planes = args[0], args[1]
             return 2.0 * x.shape[0] * x.shape[1] * planes.shape[2]
         formula = flop_registry.get(func._overloadpacket)
         if formula is None:
             return 0.0
-        count = float(formula(*args, **kwargs, out_val=out))
-        outs = [t for t in _tensors(out) if isinstance(t, DTensor)]
-        if outs and outs[0].numel():
-            o = outs[0]
-            count *= o._local_tensor.numel() / o.numel()
-            for size, p in zip(o.device_mesh.shape, o.placements):
-                if p.is_partial():
-                    count /= size
-        return count
+        return float(formula(*args, **kwargs, out_val=out))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        # a mode runs before DTensor: handing its ops back lets DTensor
+        # run them as local ops and the collectives of their
+        # redistributes, which come back here on this rank's tensors
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        ns = func.namespace
+        outs = _tensors(out)
+        if any(t.device.type != "meta" for t in outs):
+            return out          # DTensor's sharding propagation, not the step
         name = func._overloadpacket.__name__
         self.ops += 1
-        if ns in _COLLECTIVE_NS and name in COLLECTIVE_KINDS:
+        if func.namespace in _COLLECTIVE_NS and name in COLLECTIVE_KINDS:
             kind = COLLECTIVE_KINDS[name]
             self.collective[kind] = self.collective.get(kind, 0.0) + sum(
-                _nbytes(_local(t)) for t in _tensors(out))
-            return out
-        outs = _tensors(out)
-        if not outs or func.is_view or name == "wait_tensor":
-            for t in outs:
-                self._track(_local(t))
-            return out
-        self.flops += self._flops(func, args, kwargs, out)
-        self.bytes += sum(_nbytes(_local(t)) for t in
-                          _tensors((args, kwargs)) + outs)
+                _nbytes(t) for t in outs)
+        elif outs and not func.is_view and name not in _MOVES_NOTHING:
+            self.flops += self._flops(func, args, kwargs, out)
+            self.bytes += sum(_nbytes(t) for t in
+                              _tensors((args, kwargs)) + outs)
         for t in outs:
-            self._track(_local(t))
+            self._track(t)
         return out
 
 
@@ -313,15 +321,17 @@ def _place_batch(mesh, batch, rules):
 
 def build_lowerable(arch: str, shape: str, mesh,
                     quant_bits: Optional[int] = None,
-                    cfg: Optional[Config] = None
+                    cfg: Optional[Config] = None,
+                    seq_len: Optional[int] = None
                     ) -> Tuple[Callable, tuple]:
     """(fn, args): the cell's step and its inputs, placed on `mesh` as
     meta tensors by the spec functions under `rules_for`; ``fn(*args)``
     runs the step once.  `cfg` replaces the registry's config (a cut
-    depth, a reduced config).  On a one-rank mesh nothing is placed, as
-    the real steps place nothing there."""
+    depth, a reduced config), `seq_len` the case's length.  On a
+    one-rank mesh nothing is placed, as the real steps place nothing
+    there."""
     spec = shapes_mod.input_specs(arch, shape, quant_bits=quant_bits,
-                                  cfg=cfg)
+                                  cfg=cfg, seq_len=seq_len)
     cfg = spec["cfg"]
     kind = spec["kind"]
     rules = rules_for(arch, kind)
@@ -403,6 +413,70 @@ def count(fn: Callable, args: tuple) -> Dict[str, Any]:
             "temp_bytes": counter.peak, "seconds": time.time() - t0}
 
 
+_SUMMED = ("flops", "bytes", "ops", "argument_bytes", "output_bytes",
+           "temp_bytes")
+
+
+def _extrapolate(points, x: float) -> Dict[str, Any]:
+    """The counts at `x` of the polynomial through `points`, a list of
+    (x_i, `count` result): exact where each count is a polynomial in x of
+    degree below the number of points."""
+    out: Dict[str, Any] = {"coll": {}}
+    for i, (xi, ci) in enumerate(points):
+        w = 1.0
+        for j, (xj, _) in enumerate(points):
+            if j != i:
+                w *= (x - xj) / (xi - xj)
+        for key in _SUMMED:
+            out[key] = out.get(key, 0.0) + w * ci[key]
+        for kind, v in ci["coll"].items():
+            out["coll"][kind] = out["coll"].get(kind, 0.0) + w * v
+    out["seconds"] = sum(c["seconds"] for _, c in points)
+    return out
+
+
+def _loops(cfg: Config, shape: str) -> bool:
+    """Whether the cell's step loops over its tokens (`TOKEN_LOOPS`)."""
+    return shapes_mod.SHAPES[shape].kind != "decode" and any(
+        m in TOKEN_LOOPS for m, _ in cfg.layer_kinds())
+
+
+def count_cell(arch: str, shape: str, mesh, cfg: Config,
+               quant_bits: Optional[int] = None) -> Dict[str, Any]:
+    """`count` of the cell's step on `mesh`.  A cell whose step loops
+    over its tokens (`_loops`) is counted at three lengths of whole
+    mLSTM chunks past the first (`lengths`) and extrapolated to its own
+    by the quadratic through them.  That is exact: at those lengths every
+    op's size is a polynomial of degree at most two in the length (the
+    loop runs once a token, the chunkwise mLSTM once a chunk, and the
+    loop's backward writes a gradient of the whole sequence each token);
+    temp_bytes is the extrapolated peak."""
+    if not _loops(cfg, shape):
+        return count(*build_lowerable(arch, shape, mesh, quant_bits, cfg))
+    lengths = [k * recurrent.CHUNK for k in (2, 3, 4)]
+    out = _extrapolate(
+        [(s, count(*build_lowerable(arch, shape, mesh, quant_bits, cfg,
+                                    seq_len=s))) for s in lengths],
+        shapes_mod.SHAPES[shape].seq_len)
+    out["lengths"] = lengths
+    return out
+
+
+def count_periods(arch: str, shape: str, mesh, cfg: Config,
+                  quant_bits: Optional[int] = None) -> Dict[str, Any]:
+    """`count_cell` of `cfg` cut to one and to two pattern periods,
+    extrapolated to its depth: exact for whole periods, which repeat; a
+    remainder's layers are priced as a share of a period (the JAX
+    roofline's rule)."""
+    plen = len(cfg.pattern)
+    points = [(n, count_cell(arch, shape, mesh,
+                             dataclasses.replace(cfg, n_layers=n * plen),
+                             quant_bits)) for n in (1, 2)]
+    out = _extrapolate(points, cfg.n_layers / plen)
+    out["lengths"] = points[0][1].get("lengths")
+    return out
+
+
 def _args_tree(args):
     """The tensors of the args (an `nn.Module` by its state dict)."""
     out = []
@@ -429,13 +503,16 @@ def run_cell(arch: str, shape: str, mesh_kind: str,
     t0 = time.time()
     with analysis_mesh(mesh_kind, mesh_shape) as mesh:
         cfg = cell_config(arch, quant_bits, reduced)
-        fn, args = build_lowerable(arch, shape, mesh, quant_bits=quant_bits,
-                                   cfg=cfg)
-        t_build = time.time() - t0
-        c = count(fn, args)
+        looped = _loops(cfg, shape)
+        c = (count_periods if looped else count_cell)(arch, shape, mesh,
+                                                      cfg, quant_bits)
         n_chips = mesh.size()
+    counting = "per rank, op level, no fusion"
+    if looped:
+        counting += (f"; counted at one and two periods and {c['lengths']} "
+                     "tokens, extrapolated to the cell's depth and length")
     cost = {"flops": c["flops"], "bytes accessed": c["bytes"],
-            "counting": "per rank, op level, no fusion"}
+            "counting": counting}
     result = {
         "arch": arch, "shape": shape, "mesh": mesh_kind,
         "mesh_shape": list(mesh_shape) if mesh_shape else None,
@@ -451,7 +528,8 @@ def run_cell(arch: str, shape: str, mesh_kind: str,
                             "generated_code_bytes": 0},
         "collective_bytes": c["coll"],
         "ops": c["ops"],
-        "lower_s": round(t_build, 2), "compile_s": round(c["seconds"], 2),
+        "lower_s": round(time.time() - t0 - c["seconds"], 2),
+        "compile_s": round(c["seconds"], 2),
         "ok": True,
     }
     if save:

@@ -51,11 +51,8 @@ def make_production_mesh(*, multi_pod: bool = False,
         raise RuntimeError(f"the production mesh {shape} needs a process "
                            f"group of {want} ranks, one a device; the "
                            f"running group has {have}")
-    # a "fake" group (the launch tools' analysis, `launch.dryrun`) holds
-    # no device: its mesh is built for the device type alone
-    dev = torch.device(device) if dist.get_backend() == "fake" else \
-        cm.device(device)
-    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    return init_device_mesh(cm.device(device).type, shape,
+                            mesh_dim_names=axes)
 
 
 def make_host_mesh(device="cuda") -> DeviceMesh:

@@ -14,8 +14,10 @@ periods count in seconds where a 35-layer Arctic step takes minutes:
 exact for whole periods (the remainder's layers are priced as a share of
 a period, as in JAX).  Microbatches are counted at the production count
 (the accumulation loop runs them all).  Collective bytes difference the
-same way.  A cell takes a few seconds to about a minute on the CPU
-(`analysis_s`).
+same way (`dryrun.count_periods`).  An arch with a token loop (xLSTM's
+sLSTM) is counted at three lengths as well and extrapolated to the
+cell's by the quadratic through them (`dryrun.count_cell`).
+A cell takes a few seconds to a few minutes on the CPU (`analysis_s`).
 
 Terms per (arch x shape), single-pod 256-rank mesh, per rank (one H100):
   compute_s    = FLOPs / 989e12      (bf16 dense peak)
@@ -48,28 +50,6 @@ HBM_BW = 3.35e12             # bytes/s, H100 SXM HBM3 (NVIDIA data sheet)
 LINK_BW = 50e9               # bytes/s: one 400 Gb/s NDR NIC a GPU (DGX H100)
 RING_FACTOR = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
                "all-to-all": 1.0, "collective-permute": 1.0}
-
-
-def _count_at_depth(arch: str, shape: str, mesh, cfg: Config,
-                    n_layers: int, quant_bits: Optional[int]
-                    ) -> Dict[str, Any]:
-    """The dry run's per-rank counts of a depth-cut cell."""
-    cut = dataclasses.replace(cfg, n_layers=n_layers)
-    fn, args = dr.build_lowerable(arch, shape, mesh, quant_bits=quant_bits,
-                                  cfg=cut)
-    c = dr.count(fn, args)
-    return {"flops": c["flops"], "bytes": c["bytes"], "coll": c["coll"]}
-
-
-def _combine(base: Dict, delta: Dict, mult: float) -> Dict:
-    out = {
-        "flops": base["flops"] + mult * delta["flops"],
-        "bytes": base["bytes"] + mult * delta["bytes"],
-    }
-    kinds = set(base["coll"]) | set(delta["coll"])
-    out["coll"] = {k: base["coll"].get(k, 0.0)
-                   + mult * delta["coll"].get(k, 0.0) for k in kinds}
-    return out
 
 
 def model_flops(cfg: Config, tokens: int, kind: str) -> float:
@@ -122,20 +102,10 @@ def analyze_cell(arch: str, shape: str, quant_bits: Optional[int] = None,
     cfg = dataclasses.replace(dr.cell_config(arch, quant_bits, reduced),
                               **overrides)
     case = shapes_mod.SHAPES[shape]
-    plen = len(cfg.pattern)
-    n_groups_full, n_rem = divmod(cfg.n_layers, plen)
-    g_full = n_groups_full + n_rem / plen
     t0 = time.time()
     with dr.analysis_mesh("single", mesh_shape) as mesh:
-        c1 = _count_at_depth(arch, shape, mesh, cfg, plen, quant_bits)
-        c2 = _count_at_depth(arch, shape, mesh, cfg, 2 * plen, quant_bits)
+        total = dr.count_periods(arch, shape, mesh, cfg, quant_bits)
         n_chips = mesh.size()
-    delta = {"flops": max(c2["flops"] - c1["flops"], 0.0),
-             "bytes": max(c2["bytes"] - c1["bytes"], 0.0),
-             "coll": {k: max(c2["coll"].get(k, 0.0)
-                             - c1["coll"].get(k, 0.0), 0.0)
-                      for k in set(c1["coll"]) | set(c2["coll"])}}
-    total = _combine(c1, delta, g_full - 1)
     t = terms(total)
 
     if case.kind in ("train", "prefill"):
@@ -159,7 +129,9 @@ def analyze_cell(arch: str, shape: str, quant_bits: Optional[int] = None,
         "useful_flops_frac": (mflops / total["flops"]
                               if total["flops"] else 0.0),
         "roofline_frac": ((mflops / PEAK_FLOPS) / bound) if bound else 0.0,
-        "counting": "two depths differenced, production microbatches",
+        "counting": "two depths differenced, production microbatches"
+                    + (f", {total['lengths']} tokens extrapolated to the "
+                       "cell's length" if total["lengths"] else ""),
         "analysis_s": round(time.time() - t0, 1),
     }
     if save:

@@ -71,17 +71,19 @@ def _tokens(b: int, s: int) -> torch.Tensor:
 
 
 def input_specs(arch: str, shape: str, quant_bits: Optional[int] = None,
-                cfg: Optional[Config] = None) -> Dict[str, Any]:
+                cfg: Optional[Config] = None,
+                seq_len: Optional[int] = None) -> Dict[str, Any]:
     """Meta tensors for every input of the analysed step.
 
     Returns {"cfg", "kind", "batch": {...}} where batch matches the step's
     signature: train -> {tokens, labels [+ enc_inputs/prefix_embeddings]};
     prefill -> same minus labels; decode -> {token, states, index [+ ctx]}.
-    `cfg` replaces the registry's config of `arch` (a cut-down depth).
+    `cfg` replaces the registry's config of `arch` (a cut-down depth),
+    `seq_len` the case's length (a cut length).
     """
     cfg = cfg or configs.get(arch, quant_bits=quant_bits)
     case = SHAPES[shape]
-    b, s = case.global_batch, case.seq_len
+    b, s = case.global_batch, seq_len or case.seq_len
     out: Dict[str, Any] = {"cfg": cfg, "kind": case.kind}
     emb = (b, cfg.frontend_len, cfg.d_model)
 

@@ -11,7 +11,10 @@
   counted FLOPs of a prefill forward are a hand count of its products on
   one rank's shards, all-replicated rules move no collective byte while
   FSDP rules all-gather, argument bytes are the local shards' sum, and
-  the four CLIs run on reduced cells into a temp results directory;
+  the four CLIs run on reduced cells into a temp results directory; on
+  a fake (8, 1) mesh the all-gather `DTensor` issues inside a product
+  is counted to the byte, and a token loop's count extrapolated from
+  three lengths is its direct count;
 - no module of the port carries a TPU figure.
 """
 import json
@@ -181,6 +184,28 @@ _SCRIPT = textwrap.dedent('''
     out["fsdp"] = counted(dict(fsdp=True))
     dr.TRAIN_SETTINGS.pop("smollm-360m")
 
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    with dr.analysis_mesh(shape=(8, 1)) as mesh:
+        rows = [Shard(0), Replicate()]
+        x = DTensor.from_local(torch.empty(32, 64, device="meta"), mesh,
+                               rows, run_check=False)
+        w = DTensor.from_local(torch.empty(8, 32, device="meta"), mesh,
+                               rows, run_check=False)
+        out["implicit"] = dr.count(lambda a, b: a @ b, (x, w))
+
+    from repro_torch.models import recurrent
+    chunk, recurrent.CHUNK = recurrent.CHUNK, 16
+    shapes.SHAPES["loop"] = shapes.ShapeCase("loop", 80, 8, "train")
+    xcfg = dr.cell_config("xlstm-1.3b", reduced=True)
+    dr.TRAIN_SETTINGS["xlstm-1.3b"] = dict(fsdp=False, microbatches=1)
+    with dr.analysis_mesh(shape=(4, 2)) as mesh:
+        out["loop_fit"] = dr.count_cell("xlstm-1.3b", "loop", mesh, xcfg)
+        out["loop_direct"] = dr.count(*dr.build_lowerable(
+            "xlstm-1.3b", "loop", mesh, cfg=xcfg))
+    dr.TRAIN_SETTINGS.pop("xlstm-1.3b")
+    recurrent.CHUNK = chunk
+
     res, flags = sys.argv[1], ["--reduced", "--mesh-shape", "4x2",
                                "--results", sys.argv[1]]
     codes = {}
@@ -219,10 +244,13 @@ def fake(tmp_path_factory):
 
 def test_forward_flops_are_a_hand_count(fake):
     """The tiny prefill (8 x 64 tokens) on the (4, 2) mesh: the batch is
-    split over data (4) and the query heads, attention, FFN and vocab
-    over model (2), so one rank does an eighth of those products; the K
-    and V projections (``kv_heads`` is replicated by the rules) a
-    quarter."""
+    split over data (4) and the query heads, attention and FFN over
+    model (2), so one rank does an eighth of those products; the K and
+    V projections (``kv_heads`` is replicated by the rules) a quarter.
+    The tied head's input is still a partial sum over model (the FFN's
+    row-parallel output, left unreduced through the final norm), so
+    `DTensor` gathers the vocab-sharded table and each rank multiplies
+    its batch rows by all of it: a quarter."""
     c = fake["cfg"]
     b, s = 8, 64
     t = b * s
@@ -232,8 +260,34 @@ def test_forward_flops_are_a_hand_count(fake):
     eighths += 2 * 2 * b * c["h"] * s * s * c["hd"]       # QK^T and PV
     quarters = 2 * t * 2 * c["d"] * c["kv"] * c["hd"]
     head = 2 * b * c["d"] * c["vocab"]                    # last token only
-    want = (c["layers"] * (eighths / 8 + quarters / 4) + head / 8)
+    want = (c["layers"] * (eighths / 8 + quarters / 4) + head / 4)
     assert fake["default"]["flops"] == want
+
+
+def test_an_implicit_gather_is_counted(fake):
+    """x [256, 64] split over data (8 ranks) times an FSDP weight
+    [64, 32] split over data, with no `constrain`: `DTensor` gathers the
+    weight inside the product, so one rank receives the whole weight
+    and multiplies its 32 rows by it."""
+    c = fake["implicit"]
+    assert c["coll"] == {"all-gather": 64 * 32 * 4}
+    assert c["flops"] == 2 * 32 * 64 * 32
+    assert c["bytes"] == (32 * 64 + 64 * 32 + 32 * 32) * 4
+
+
+def test_a_token_loop_is_counted_at_three_lengths(fake):
+    """xLSTM's sLSTM loops over the tokens, so its train and prefill cells
+    are counted at three lengths of whole mLSTM chunks and extrapolated.
+    With 16-token chunks, the train step of the reduced xLSTM at 80
+    tokens, fitted through 32, 48 and 64, is its direct count: FLOPs,
+    bytes (quadratic in the length: the loop's backward writes a
+    gradient of the whole sequence each token), collectives and
+    argument and output bytes."""
+    fit, direct = fake["loop_fit"], fake["loop_direct"]
+    assert fit["lengths"] == [32, 48, 64]
+    for key in ("flops", "bytes", "coll", "argument_bytes",
+                "output_bytes"):
+        assert fit[key] == direct[key], key
 
 
 def test_replicated_rules_move_nothing_and_fsdp_gathers(fake):
