@@ -8,7 +8,10 @@ CoMeFa (a wall-clock simulator of a cycle-priced machine):
     the Python process: program encode, engine dispatch, host-state
     syncs, serving steps.  Emitted by ``with`` context managers that
     record on exit (exceptions included - the span closes, tagged with
-    the exception type, and nesting stays consistent).
+    the exception type, and nesting stays consistent).  An
+    `async_span(name, key, ...)` is the same on a timeline of its own,
+    keyed by `key`: spans that overlap without nesting (a serving
+    request's life beside its neighbours').
   * **model-time spans** (`model_span(name, start, duration, ...)`) -
     *modeled hardware cycles*: the per-tile load/compute/unload phases
     of a `schedule.Schedule` timeline, per-slot GEMV makespans.  The
@@ -28,6 +31,12 @@ Chrome trace-event JSON to that path, or programmatically via
 
 The ring buffer (`collections.deque(maxlen=...)`) bounds memory: a
 long-running traced sweep keeps the most recent `capacity` events.
+
+Wall-clock times are microseconds from the tracer's origin, a reading of
+`time.perf_counter_ns` taken beside one of `time.time_ns` (at
+construction and at `Tracer.clear`).  The Unix reading,
+`Tracer.origin_unix_ns`, places the spans on the clock `torch.profiler`
+stamps its events on (`export.merge_chrome_traces`).
 """
 from __future__ import annotations
 
@@ -47,18 +56,21 @@ MODEL_TRACK = "model"
 
 class TraceEvent:
     """One completed span.  ``ts``/``dur`` are microseconds on the wall
-    track and modeled cycles on the model track."""
+    track and modeled cycles on the model track.  ``async_id`` is the
+    key of an `async_span` (None for a nesting span)."""
 
-    __slots__ = ("name", "track", "tid", "ts", "dur", "attrs")
+    __slots__ = ("name", "track", "tid", "ts", "dur", "attrs", "async_id")
 
     def __init__(self, name: str, track: str, tid: int, ts: float,
-                 dur: float, attrs: Optional[Dict] = None):
+                 dur: float, attrs: Optional[Dict] = None,
+                 async_id=None):
         self.name = name
         self.track = track
         self.tid = tid
         self.ts = ts
         self.dur = dur
         self.attrs = attrs or {}
+        self.async_id = async_id
 
     def __repr__(self):
         return (f"TraceEvent({self.name!r}, {self.track}, ts={self.ts:.1f},"
@@ -90,15 +102,17 @@ NULL_SPAN = _NullSpan()
 class _Span:
     """A live wall-clock span; records into the tracer on exit."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_start")
+    __slots__ = ("_tracer", "name", "attrs", "_start", "_async_id")
 
-    def __init__(self, tracer: "Tracer", name: str, attrs: Dict):
+    def __init__(self, tracer: "Tracer", name: str, attrs: Dict,
+                 async_id=None):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
+        self._async_id = async_id
 
     def __enter__(self):
-        self._start = time.perf_counter()
+        self._start = time.perf_counter_ns()
         return self
 
     def set(self, **attrs):
@@ -111,8 +125,9 @@ class _Span:
         # and the event carries the exception type for the timeline
         if exc_type is not None:
             self.attrs["error"] = exc_type.__name__
-        self._tracer._record(self.name, self._start, time.perf_counter(),
-                             self.attrs)
+        self._tracer._record(self.name, self._start,
+                             time.perf_counter_ns(), self.attrs,
+                             self._async_id)
         return False
 
 
@@ -125,7 +140,14 @@ class Tracer:
         self._events: deque = deque(maxlen=capacity)
         self.enabled = enabled
         self.path: Optional[str] = None
-        self._t0 = time.perf_counter()
+        self._set_origin()
+
+    def _set_origin(self) -> None:
+        """The origin pair: `time.time_ns` between two reads of
+        `time.perf_counter_ns`, whose midpoint is the origin."""
+        before = time.perf_counter_ns()
+        self.origin_unix_ns = time.time_ns()
+        self._t0 = (before + time.perf_counter_ns()) // 2
 
     @property
     def capacity(self) -> int:
@@ -142,11 +164,19 @@ class Tracer:
             return NULL_SPAN
         return _Span(self, name, attrs)
 
-    def _record(self, name: str, start: float, end: float,
-                attrs: Dict) -> None:
+    def async_span(self, name: str, key, **attrs):
+        """A wall-clock span that need not nest in the spans open around
+        it: opened and closed on its own (``__enter__``/``__exit__``),
+        and exported on a timeline of its own keyed by `key`."""
+        if not self.enabled:
+            return NULL_SPAN
+        return _Span(self, name, attrs, key)
+
+    def _record(self, name: str, start: int, end: int, attrs: Dict,
+                async_id=None) -> None:
         ev = TraceEvent(name, WALL_TRACK, threading.get_ident(),
-                        (start - self._t0) * 1e6, (end - start) * 1e6,
-                        attrs)
+                        (start - self._t0) / 1e3, (end - start) / 1e3,
+                        attrs, async_id)
         with self._lock:
             self._events.append(ev)
 
@@ -170,8 +200,10 @@ class Tracer:
             return list(self._events)
 
     def clear(self) -> None:
+        """Drop every event and take a new origin."""
         with self._lock:
             self._events.clear()
+            self._set_origin()
 
     def __len__(self) -> int:
         with self._lock:
@@ -200,6 +232,11 @@ def span(name: str, **attrs):
     if not t.enabled:
         return NULL_SPAN
     return _Span(t, name, attrs)
+
+
+def async_span(name: str, key, **attrs):
+    """Module-level shortcut onto the global tracer's `async_span`."""
+    return _TRACER.async_span(name, key, **attrs)
 
 
 def model_span(name: str, start: float, duration: float,
@@ -263,7 +300,7 @@ def flush(path: Optional[str] = None) -> Optional[str]:
     path = path or _TRACER.path
     if not path:
         return None
-    export.write_chrome_trace(path, _TRACER.events())
+    export.write_chrome_trace(path)
     return path
 
 

@@ -33,7 +33,6 @@ from ..parallel import sharding as shd
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 
-_QUEUE_DEPTH = obs_metrics.gauge("serve.queue_depth")
 _REQUESTS_DONE = obs_metrics.counter("serve.requests_completed")
 
 
@@ -174,6 +173,20 @@ def serve_continuous(params: lm.LM, requests: List[Request], *,
     ``stats`` dict receives ``steps`` (batched dispatches),
     ``occupancy`` (mean live-row fraction) and ``slot_steps``.
 
+    With the tracer on, each step records four wall spans, in this order
+    and without overlap, each with ``step`` (1-based, that of its
+    ``serve.batch_step``): ``serve.admit`` (the rows filled from the
+    queue and their state reset; ``admitted``, ``queued``),
+    ``serve.batch_step`` (staging the tokens and positions, and the
+    decode call, which issues the step's kernels; ``live``),
+    ``serve.readback`` (the greedy tokens copied to the host, where the
+    host waits for the device to finish the step) and ``serve.advance``
+    (each row's next prompt token, emission or retirement; ``emitted``,
+    ``retired``).  At temperature > 0 ``serve.readback`` holds nothing:
+    the wait falls in the first row sampled, inside ``serve.advance``.
+    Each request is an `obs.trace.async_span` ``serve.request``, keyed by
+    its index, from its admission to its retirement.
+
     An encoder-decoder is refused (NotImplementedError): a request would
     need its own encoder context, which the JAX function does not pass
     either.
@@ -205,57 +218,67 @@ def serve_continuous(params: lm.LM, requests: List[Request], *,
         else None
     try:
         while queue or any(r is not None for r in slot_req):
-            # admit: fill every idle row from the queue
-            for g in range(slots):
-                if slot_req[g] is not None or not queue:
-                    continue
-                rid, req = queue.popleft()
-                _reset_state_slot(states, fresh, g)
-                slot_req[g], slot_pos[g], index[g] = rid, 0, 0
-                outputs[rid] = []
-                tok[g, 0] = int(req.prompt[0])
-                sp = obs_trace.span("serve.request", request=rid, slot=g,
-                                    prompt=len(req.prompt),
-                                    steps=req.steps)
-                slot_span[g] = sp
-                sp.__enter__()
-            _QUEUE_DEPTH.set(len(queue))
-            live = np.array([r is not None for r in slot_req])
-            if executor is not None:
-                executor.active_mask = live
-            slot_steps += int(live.sum())
             step += 1
+            with obs_trace.span("serve.admit", step=step) as sp:
+                # fill every idle row from the queue
+                admitted = 0
+                for g in range(slots):
+                    if slot_req[g] is not None or not queue:
+                        continue
+                    rid, req = queue.popleft()
+                    _reset_state_slot(states, fresh, g)
+                    slot_req[g], slot_pos[g], index[g] = rid, 0, 0
+                    outputs[rid] = []
+                    tok[g, 0] = int(req.prompt[0])
+                    slot_span[g] = obs_trace.async_span(
+                        "serve.request", rid, request=rid, slot=g,
+                        prompt=len(req.prompt), steps=req.steps)
+                    slot_span[g].__enter__()
+                    admitted += 1
+                live = np.array([r is not None for r in slot_req])
+                if executor is not None:
+                    executor.active_mask = live
+                slot_steps += int(live.sum())
+                sp.set(admitted=admitted, queued=len(queue))
             with obs_trace.span("serve.batch_step", step=step,
                                 live=int(live.sum())):
                 logits, states = lm.decode_step(
                     params, torch.as_tensor(tok, device=dev), states,
                     torch.as_tensor(index, device=dev))
-            greedy = torch.argmax(logits[:, -1], dim=-1).tolist() \
-                if temperature == 0.0 else None
-            # per-row advance: next prompt token, or sample / retire
-            for g in range(slots):
-                rid = slot_req[g]
-                if rid is None:
-                    continue
-                req = requests[rid]
-                slot_pos[g] += 1
-                index[g] += 1
-                if slot_pos[g] < len(req.prompt):
-                    tok[g, 0] = int(req.prompt[slot_pos[g]])
-                    continue
-                emitted = outputs[rid]
-                if greedy is not None:
-                    t = greedy[g]
-                else:
-                    gen = _request_generator(seed, rid, len(emitted), dev)
-                    t = int(sample(logits[g:g + 1], gen, temperature)[0])
-                emitted.append(t)
-                tok[g, 0] = t
-                if len(emitted) >= req.steps:
-                    slot_req[g] = None
-                    slot_span[g].__exit__(None, None, None)
-                    slot_span[g] = None
-                    _REQUESTS_DONE.inc()
+            with obs_trace.span("serve.readback", step=step):
+                greedy = torch.argmax(logits[:, -1], dim=-1).tolist() \
+                    if temperature == 0.0 else None
+            with obs_trace.span("serve.advance", step=step) as sp:
+                # per row: next prompt token, or sample / retire
+                n_emitted = n_retired = 0
+                for g in range(slots):
+                    rid = slot_req[g]
+                    if rid is None:
+                        continue
+                    req = requests[rid]
+                    slot_pos[g] += 1
+                    index[g] += 1
+                    if slot_pos[g] < len(req.prompt):
+                        tok[g, 0] = int(req.prompt[slot_pos[g]])
+                        continue
+                    emitted = outputs[rid]
+                    if greedy is not None:
+                        t = greedy[g]
+                    else:
+                        gen = _request_generator(seed, rid, len(emitted),
+                                                 dev)
+                        t = int(sample(logits[g:g + 1], gen,
+                                       temperature)[0])
+                    emitted.append(t)
+                    tok[g, 0] = t
+                    n_emitted += 1
+                    if len(emitted) >= req.steps:
+                        slot_req[g] = None
+                        slot_span[g].__exit__(None, None, None)
+                        slot_span[g] = None
+                        _REQUESTS_DONE.inc()
+                        n_retired += 1
+                sp.set(emitted=n_emitted, retired=n_retired)
     finally:
         if executor is not None:
             executor.active_mask = None
