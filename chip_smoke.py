@@ -470,14 +470,21 @@ def _counted_run(bpm, engine, model, dev, b, s, steps, serve,
     kernel's launch count reset just before and read just after,
     `generate` (b x s seeded prompt, `steps` new tokens; an
     encoder-decoder encodes `enc_inputs` once) and, with `serve`,
-    `serve_continuous` (8 requests over 4 slots)."""
+    `serve_continuous` (8 requests over 4 slots).  The warm-up also
+    serves one request at the same slots and max_len, so the counted call
+    replays the decode step captured there."""
     cfg = model.cfg
     gen = torch.Generator(device=dev).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
 
-    # warm-up (first launches, allocator), not counted
+    # warm-up (first launches, allocator, the serving step's capture), not
+    # counted
     engine.generate(model, prompt, steps=2, max_len=s + 3,
                     enc_inputs=enc_inputs)
+    if serve:
+        engine.serve_continuous(model, [engine.Request(np.ones(2, np.int64),
+                                                       2)],
+                                slots=4, max_len=24)
     torch.cuda.synchronize()
 
     # ---- the main path, counted ----

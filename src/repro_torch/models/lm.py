@@ -19,7 +19,8 @@ its norm ``enc_nf``.
 
 Decode threads one state dict per layer through the stack (a KV cache
 for attention, the recurrent state otherwise); the states are updated in
-place.
+place.  On a CUDA device `capture_decode_step` records one step as a CUDA
+graph, which `decode_step(..., graph=)` replays.
 
 The spec functions (`layer_specs`, `stack_specs`, `specs`,
 `layer_state_specs`, `stack_state_specs`, `decode_state_specs`) give
@@ -38,12 +39,14 @@ graph; `trainable` turns gradients on for a model that is to be trained
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from ..kernels import bitplane_matmul as bpm
 from ..parallel import sharding as shd
 from ..parallel.sharding import constrain
 from . import attention as attn
@@ -452,15 +455,8 @@ def decode_state_specs(cfg: Config) -> List[Dict[str, tuple]]:
     return stack_state_specs(cfg)
 
 
-def decode_step(params: LM, token, states: State, index, *,
-                ctx: Optional[torch.Tensor] = None):
-    """One decode step: token [B, 1] -> (logits [B, 1, V], states).
-
-    `index` is a scalar or a [B] vector of positions; `states` is
-    updated in place and returned (placed states: each layer's dict
-    takes its new tensors).  An encoder-decoder takes `ctx`, the
-    output of `encode`.
-    """
+def _decode(params: LM, token, states: State, index, ctx=None):
+    """The eager decode step: each kernel launched from Python."""
     cfg = params.cfg
     if cfg.family == "encdec" and ctx is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder: decode_step "
@@ -470,3 +466,110 @@ def decode_step(params: LM, token, states: State, index, *,
     for layer, state in zip(params.stack, states):
         x, _ = layer_decode(layer, x, state, index, cfg, ctx=ctx)
     return _logits(params, x, cfg), states
+
+
+def decode_step(params: LM, token, states: State, index, *,
+                ctx: Optional[torch.Tensor] = None,
+                graph: Optional[DecodeGraph] = None):
+    """One decode step: token [B, 1] -> (logits [B, 1, V], states).
+
+    `index` is a scalar or a [B] vector of positions; `states` is
+    updated in place and returned (placed states: each layer's dict
+    takes its new tensors).  An encoder-decoder takes `ctx`, the
+    output of `encode`.
+
+    With `graph` (from `capture_decode_step` on these params and
+    states), the step is that graph replayed: the token and positions
+    are copied into its buffers without blocking (see `DecodeGraph`),
+    and the logits come back as a fresh tensor.  The kernels and the
+    numbers are the eager step's; the packed-linear hook is host-side
+    and does not fire in a replay.
+    """
+    if graph is None:
+        return _decode(params, token, states, index, ctx=ctx)
+    if ctx is not None:
+        raise ValueError("a captured decode step takes no ctx")
+    return graph.replay(params, token, states, index), states
+
+
+class DecodeGraph:
+    """One decode step captured as a CUDA graph (`capture_decode_step`):
+    the graph, the static token [B, 1] and position [B] buffers it reads,
+    the logits it writes, the states it updates in place and the
+    bit-plane kernel launches one replay makes.
+
+    A replay copies the token and positions into the graph's buffers
+    with ``non_blocking=True`` and records `staged` once those copies are
+    queued: a caller that writes a pinned host token or index again
+    before it has read the step's result waits on `staged` first.  Each
+    replay adds its launches to `kernels.bitplane_matmul.launches`, as
+    the eager step's wrappers would; the capture adds those of its
+    warm-up step (run eagerly, on copies of the states) and none for the
+    recording, which launches nothing."""
+
+    def __init__(self, params: LM, token, states: State, index):
+        dev = params.device
+        if dev.type != "cuda":
+            raise ValueError(f"a decode step is captured on a CUDA device, "
+                             f"not {dev}")
+        self.owner = weakref.ref(params)
+        self.states = states
+        self.token = torch.empty(tuple(token.shape), dtype=torch.long,
+                                 device=dev)
+        self.token.copy_(token)
+        self.pos = attn.positions(index, token.shape[0], dev).clone()
+        self.staged = torch.cuda.Event()
+        prev = cm.set_linear_hook(None)
+        try:
+            # warm up on copies of the states, on a side stream: builds
+            # the kernels and fills the lazy caches, and leaves the states
+            # as they were (a recurrent update must not run twice)
+            warm = [{k: v.clone() for k, v in st.items()} for st in states]
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                _decode(params, self.token, warm, self.pos)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            del warm
+            self.graph = torch.cuda.CUDAGraph()
+            before = bpm.launches
+            try:
+                with torch.cuda.graph(self.graph):
+                    self.logits, _ = _decode(params, self.token, states,
+                                             self.pos)
+                self.launches = bpm.launches - before
+            finally:
+                # the wrappers counted calls that were recorded, not
+                # launched
+                bpm.launches = before
+        finally:
+            cm.set_linear_hook(prev)
+
+    def replay(self, params: LM, token, states: State, index
+               ) -> torch.Tensor:
+        if self.owner() is not params:
+            raise ValueError("the decode step was captured on other params")
+        if states is not self.states and [
+                t.data_ptr() for st in states for t in st.values()] != [
+                t.data_ptr() for st in self.states for t in st.values()]:
+            raise ValueError("the decode step was captured on other states")
+        self.token.copy_(token, non_blocking=True)
+        if isinstance(index, torch.Tensor):
+            self.pos.copy_(index.expand(self.pos.shape[0]),
+                           non_blocking=True)
+        else:
+            self.pos.fill_(int(index))
+        self.staged.record()
+        self.graph.replay()
+        bpm.launches += self.launches
+        return self.logits.clone()
+
+
+def capture_decode_step(params: LM, token, states: State, index
+                        ) -> DecodeGraph:
+    """`decode_step` on `states` (batch B, updated in place at every
+    replay) captured as one CUDA graph, for ``decode_step(..., graph=)``.
+    `token` [B, 1] and `index` (a scalar or [B]) give the buffers' shapes
+    and first values; the states are left as they were.  A step that
+    cannot be captured raises; there is no eager fallback."""
+    return DecodeGraph(params, token, states, index)

@@ -12,10 +12,13 @@ the JAX package.
 `make_jitted_serve_step` is the compiled decode step: on a mesh of many
 ranks it runs on params and states placed by their specs (`DTensor`s);
 on one card it is one step captured as a CUDA graph and replayed.
+`serve_continuous` replays such a graph at every step on a CUDA device
+(`lm.capture_decode_step`).
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from collections import deque
 from typing import Any, Dict, List, Optional
 
@@ -25,8 +28,6 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
 
-from ..kernels import bitplane_matmul as bpm
-from ..models import attention as attn
 from ..models import common as cm
 from ..models import lm
 from ..parallel import sharding as shd
@@ -34,6 +35,8 @@ from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 
 _REQUESTS_DONE = obs_metrics.counter("serve.requests_completed")
+_DECODE_STEPS = obs_metrics.counter("serve.decode_steps")
+_GRAPH_CAPTURES = obs_metrics.counter("serve.graph_captures")
 
 
 def prefill(params: lm.LM, tokens: torch.Tensor, max_len: int, *,
@@ -151,6 +154,55 @@ def _reset_state_slot(states, fresh, slot: int) -> None:
             t[slot].copy_(init[name][0])
 
 
+def _capture(params: lm.LM, token, states, index) -> lm.DecodeGraph:
+    _GRAPH_CAPTURES.inc()
+    return lm.capture_decode_step(params, token, states, index)
+
+
+class _ServeGraph:
+    """What `serve_continuous` keeps on one card for one (slots, max_len)
+    between its calls: the batch's decode states, a batch-1 fresh init
+    for the row resets, pinned host buffers for the tokens [slots, 1] and
+    positions [slots], and the decode step on them captured as one CUDA
+    graph."""
+
+    def __init__(self, params: lm.LM, slots: int, max_len: int):
+        dev = params.device
+        self.ptr = params.embed["e"].data_ptr()
+        self.states = lm.decode_state_init(params.cfg, slots, max_len, dev)
+        self.fresh = lm.decode_state_init(params.cfg, 1, max_len, dev)
+        self.tok = torch.zeros((slots, 1), dtype=torch.long,
+                               pin_memory=True)
+        self.index = torch.zeros((slots,), dtype=torch.long,
+                                 pin_memory=True)
+        self.graph = _capture(params, self.tok, self.states, self.index)
+        self.busy = False
+
+
+# each params' `_ServeGraph`s by (slots, max_len); an entry goes with its
+# params (a graph holds them only by a weak reference), and a copy of the
+# params starts with none
+_SERVE_GRAPHS = weakref.WeakKeyDictionary()
+
+
+def _step_graph(params: lm.LM, slots: int, max_len: int,
+                executor) -> Optional[_ServeGraph]:
+    """The captured step `serve_continuous` replays, or None where it
+    runs the eager step: on a device other than CUDA, and with an
+    `executor` installed (its hook runs on the host at every projection,
+    and a replay would skip it).  Kept for as long as the params live,
+    keyed by (slots, max_len), made at the first call; one captured on
+    params that have moved since is made again."""
+    if params.device.type != "cuda" or executor is not None:
+        return None
+    cache = _SERVE_GRAPHS.setdefault(params, {})
+    entry = cache.get((slots, max_len))
+    if entry is None or entry.ptr != params.embed["e"].data_ptr():
+        entry = cache[(slots, max_len)] = _ServeGraph(params, slots,
+                                                      max_len)
+    return entry
+
+
 def serve_continuous(params: lm.LM, requests: List[Request], *,
                      slots: int, max_len: int, temperature: float = 0.0,
                      generator: Optional[torch.Generator] = None,
@@ -159,10 +211,23 @@ def serve_continuous(params: lm.LM, requests: List[Request], *,
     """Token-level continuous batching over a fixed-width decode batch.
 
     Every step runs ONE batched decode over all `slots` rows at per-row
-    sequence positions (the vector-`index` decode path); between steps,
-    finished requests retire and queued requests take the freed rows.  A
-    newly admitted request replays its prompt token by token in its row
-    while other rows keep decoding.
+    sequence positions (the vector-`index` decode path), one call of
+    `lm.decode_step`; between steps, finished requests retire and queued
+    requests take the freed rows.  A newly admitted request replays its
+    prompt token by token in its row while other rows keep decoding.
+
+    On a CUDA device with no `executor`, that call replays one CUDA
+    graph of the step: the first call for a (slots, max_len) captures
+    it, on decode states it keeps with the graph for as long as the
+    params live, and later calls replay it on those states.  They need no reset between calls:
+    each row's state is restored at its admission, as within a call.
+    The tokens and positions are staged in pinned host buffers and
+    copied without blocking.  On the CPU, and with an `executor`, every
+    call runs the eager step on states of its own.  Each step counts
+    in ``serve.decode_steps`` (``mode="graph"`` or ``"eager"``), each
+    capture in ``serve.graph_captures``.  A call that re-enters while
+    another on the same params, slots and max_len is running raises
+    RuntimeError.
 
     At temperature > 0, emission n of request r draws from a generator
     seeded by (seed, r, n), where seed is ``generator.initial_seed()``
@@ -178,14 +243,16 @@ def serve_continuous(params: lm.LM, requests: List[Request], *,
     ``serve.batch_step``): ``serve.admit`` (the rows filled from the
     queue and their state reset; ``admitted``, ``queued``),
     ``serve.batch_step`` (staging the tokens and positions, and the
-    decode call, which issues the step's kernels; ``live``),
-    ``serve.readback`` (the greedy tokens copied to the host, where the
-    host waits for the device to finish the step) and ``serve.advance``
-    (each row's next prompt token, emission or retirement; ``emitted``,
-    ``retired``).  At temperature > 0 ``serve.readback`` holds nothing:
-    the wait falls in the first row sampled, inside ``serve.advance``.
-    Each request is an `obs.trace.async_span` ``serve.request``, keyed by
-    its index, from its admission to its retirement.
+    decode call, which launches the step's kernels or replays its graph;
+    ``live``), ``serve.readback`` (the greedy tokens copied to the host,
+    where the host waits for the device to finish the step) and
+    ``serve.advance`` (each row's next prompt token, emission or
+    retirement; ``emitted``, ``retired``).  At temperature > 0
+    ``serve.readback`` holds no more than the wait for a replay's staging
+    copies: the wait for the step falls in the first row sampled, inside
+    ``serve.advance``.  Each request is an `obs.trace.async_span`
+    ``serve.request``, keyed by its index, from its admission to its
+    retirement.
 
     An encoder-decoder is refused (NotImplementedError): a request would
     need its own encoder context, which the JAX function does not pass
@@ -204,15 +271,29 @@ def serve_continuous(params: lm.LM, requests: List[Request], *,
                              f" positions, max_len is {max_len}")
     dev = params.device
     seed = generator.initial_seed() if generator is not None else 0
-    states = lm.decode_state_init(params.cfg, slots, max_len, dev)
-    fresh = lm.decode_state_init(params.cfg, 1, max_len, dev)
+    captured = _step_graph(params, slots, max_len, executor)
+    if captured is None:
+        mode = "eager"
+        states = lm.decode_state_init(params.cfg, slots, max_len, dev)
+        fresh = lm.decode_state_init(params.cfg, 1, max_len, dev)
+        tok = np.zeros((slots, 1), np.int64)
+        index = np.zeros((slots,), np.int64)
+    else:
+        if captured.busy:
+            raise RuntimeError(
+                f"serve_continuous re-entered while a call on the same "
+                f"params with slots={slots}, max_len={max_len} runs")
+        mode, states, fresh = "graph", captured.states, captured.fresh
+        # views of the pinned buffers the replay copies from; the last
+        # call's copies are done (its last step was read back)
+        tok, index = captured.tok.numpy(), captured.index.numpy()
+        tok[:], index[:] = 0, 0
+        captured.busy = True
     queue = deque(enumerate(requests))
     outputs: List[Optional[List[int]]] = [None] * len(requests)
     slot_req = [None] * slots        # request id per row, None = idle
     slot_pos = [0] * slots           # prompt tokens consumed per row
     slot_span = [None] * slots       # open serve.request span per row
-    tok = np.zeros((slots, 1), np.int64)
-    index = np.zeros((slots,), np.int64)
     step = slot_steps = 0
     prev_hook = cm.set_linear_hook(executor) if executor is not None \
         else None
@@ -242,12 +323,27 @@ def serve_continuous(params: lm.LM, requests: List[Request], *,
                 sp.set(admitted=admitted, queued=len(queue))
             with obs_trace.span("serve.batch_step", step=step,
                                 live=int(live.sum())):
-                logits, states = lm.decode_step(
-                    params, torch.as_tensor(tok, device=dev), states,
-                    torch.as_tensor(index, device=dev))
+                if captured is None:
+                    logits, states = lm.decode_step(
+                        params, torch.as_tensor(tok, device=dev), states,
+                        torch.as_tensor(index, device=dev))
+                else:
+                    logits, states = lm.decode_step(
+                        params, captured.tok, states, captured.index,
+                        graph=captured.graph)
+                _DECODE_STEPS.inc(mode=mode)
             with obs_trace.span("serve.readback", step=step):
-                greedy = torch.argmax(logits[:, -1], dim=-1).tolist() \
-                    if temperature == 0.0 else None
+                # the step's one host sync; it follows the replay's copies
+                # of tok and index on the stream, so the writes to them
+                # below come after those copies.  At temperature > 0
+                # nothing is read back before the first write: wait for
+                # the copies alone
+                if temperature == 0.0:
+                    greedy = torch.argmax(logits[:, -1], dim=-1).tolist()
+                else:
+                    greedy = None
+                    if captured is not None:
+                        captured.graph.staged.synchronize()
             with obs_trace.span("serve.advance", step=step) as sp:
                 # per row: next prompt token, or sample / retire
                 n_emitted = n_retired = 0
@@ -280,6 +376,8 @@ def serve_continuous(params: lm.LM, requests: List[Request], *,
                         n_retired += 1
                 sp.set(emitted=n_emitted, retired=n_retired)
     finally:
+        if captured is not None:
+            captured.busy = False
         if executor is not None:
             executor.active_mask = None
             cm.set_linear_hook(prev_hook)
@@ -303,58 +401,12 @@ def _check_cfg(params: lm.LM, cfg: cm.Config) -> None:
                          f"{params.cfg.name}")
 
 
-class _Captured:
-    """One captured decode step: its graph, the static token and
-    position buffers it reads, the logits it writes, and the bit-plane
-    kernel launches one replay makes."""
-
-    def __init__(self, params: lm.LM, token: torch.Tensor, states,
-                 index):
-        dev = params.device
-        self.params = params             # the graph reads its storages
-        self.token = torch.empty(tuple(token.shape), dtype=torch.long,
-                                 device=dev)
-        self.token.copy_(token)
-        self.pos = attn.positions(index, token.shape[0], dev).clone()
-        prev = cm.set_linear_hook(None)
-        try:
-            # warm up on copies of the states, on a side stream: builds
-            # the kernels and fills the lazy caches, and leaves the states
-            # as they were (a recurrent update must not run twice)
-            warm = [{k: v.clone() for k, v in st.items()} for st in states]
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                lm.decode_step(params, self.token, warm, self.pos)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            del warm
-            self.graph = torch.cuda.CUDAGraph()
-            before = bpm.launches
-            with torch.cuda.graph(self.graph):
-                self.logits, _ = lm.decode_step(params, self.token, states,
-                                                self.pos)
-            # the wrappers counted calls that were recorded, not launched
-            self.launches = bpm.launches - before
-            bpm.launches = before
-        finally:
-            cm.set_linear_hook(prev)
-
-    def __call__(self, token, index) -> torch.Tensor:
-        self.token.copy_(token)
-        if isinstance(index, torch.Tensor):
-            self.pos.copy_(index.expand(self.pos.shape[0]))
-        else:
-            self.pos.fill_(int(index))
-        self.graph.replay()
-        bpm.launches += self.launches
-        return self.logits.clone()
-
-
 class CapturedServeStep:
     """`fn(params, token, states, index) -> (logits, states)` on one card:
-    the decode step captured as a CUDA graph the first time a set of
-    state storages is seen (with the params, the token's shape and the
-    kind of index), then replayed, the states updated in place (the
+    the decode step captured as a CUDA graph (`lm.capture_decode_step`)
+    the first time a set of state storages is seen (with the params, the
+    token's shape and the kind of index), then replayed through
+    ``lm.decode_step(..., graph=)``, the states updated in place (the
     counterpart of ``donate_argnums``).  A position is copied into the
     graph's own buffer before each replay, so it is not baked in; the
     logits come back as a fresh tensor, and sampling stays outside.  The
@@ -365,7 +417,8 @@ class CapturedServeStep:
 
     def __init__(self, cfg: cm.Config):
         self.cfg = cfg
-        self.graphs: Dict[tuple, _Captured] = {}
+        self.graphs: Dict[tuple, lm.DecodeGraph] = {}
+        self._params: Dict[int, lm.LM] = {}     # the graphs read them
 
     def __call__(self, params: lm.LM, token, states, index):
         _check_cfg(params, self.cfg)
@@ -373,10 +426,11 @@ class CapturedServeStep:
         key = (id(params), params.embed["e"].data_ptr(), tuple(token.shape),
                isinstance(index, torch.Tensor),
                tuple(t.data_ptr() for st in states for t in st.values()))
-        step = self.graphs.get(key)
-        if step is None:
-            step = self.graphs[key] = _Captured(params, token, states, index)
-        return step(token, index), states
+        graph = self.graphs.get(key)
+        if graph is None:
+            self._params[id(params)] = params
+            graph = self.graphs[key] = _capture(params, token, states, index)
+        return lm.decode_step(params, token, states, index, graph=graph)
 
 
 def _placed_step(mesh, cfg: cm.Config, pspecs, sspecs, tok_spec):

@@ -965,6 +965,122 @@ def test_captured_step_keys_graphs_by_state_storage(card_mesh):
     assert not torch.equal(la, lb)
 
 
+# -- serve_continuous through the captured step ------------------------------
+
+SERVE_SLOTS, SERVE_MAX_LEN = 8, 24
+
+
+def _serve_model(name, cuda):
+    """A reduced bf16 model of `name`'s family, 8-bit planes, every layer
+    kind of its pattern; local layers on a ring of 8 that the requests'
+    positions wrap."""
+    base = configs.get(name)
+    cfg = cm.reduced(base, quant_bits=8, dtype="bfloat16", window=8,
+                     n_layers=max(2, len(base.pattern)))
+    return lm.init(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
+
+
+def _staggered(seed, n, vocab):
+    """`n` requests of 1-6 prompt tokens and 1-10 new ones: admissions,
+    prompt replay and retirements all through the call."""
+    rng = np.random.default_rng(seed)
+    return [engine.Request(rng.integers(0, vocab, int(rng.integers(1, 7))),
+                           int(rng.integers(1, 11))) for _ in range(n)]
+
+
+def _serve(model, reqs, eager, monkeypatch, **kw):
+    """`serve_continuous` at 8 slots; with `eager`, the engine's step
+    chooser made to pick the eager step.  Returns (tokens, stats,
+    (eager steps, graph steps, captures) counted, bit-plane launches)."""
+    from repro_torch.obs import metrics as obs_metrics
+    steps = obs_metrics.counter("serve.decode_steps")
+    captures = obs_metrics.counter("serve.graph_captures")
+    with monkeypatch.context() as mp:
+        if eager:
+            mp.setattr(engine, "_step_graph", lambda *a: None)
+        before = (steps.value(mode="eager"), steps.value(mode="graph"),
+                  captures.value(), bpm.launches)
+        stats = {}
+        out = engine.serve_continuous(model, reqs, slots=SERVE_SLOTS,
+                                      max_len=SERVE_MAX_LEN, stats=stats,
+                                      **kw)
+        after = (steps.value(mode="eager"), steps.value(mode="graph"),
+                 captures.value(), bpm.launches)
+    counted = tuple(a - b for a, b in zip(after, before))
+    return [o.tolist() for o in out], stats, counted[:3], counted[3]
+
+
+@pytest.mark.parametrize("name", ["smollm-360m", "mixtral-8x7b",
+                                  "recurrentgemma-2b", "xlstm-1.3b",
+                                  "gemma2-27b"])
+def test_serve_continuous_replays_the_eager_tokens(cuda, monkeypatch, name):
+    """A reduced model of each decoder family (dense, MoE on local ring
+    attention, recurrent with a local ring, xLSTM, local and global):
+    `serve_continuous` through the captured step gives exactly the eager
+    step's tokens and stats, every step one replay, one capture at the
+    first call, and one bit-plane launch a packed projection for each
+    replay and for the capture's eager warm-up step; a second call on the
+    same (slots, max_len), with rows idle from its start on the first
+    call's states, captures nothing, launches one per projection a
+    replay and still gives the eager tokens."""
+    model = _serve_model(name, cuda)
+    per_call = lm.packed_projections(model)
+    first, second = (_staggered(1, 14, model.cfg.vocab),
+                     _staggered(2, 5, model.cfg.vocab))
+    want, want_stats, counted, _ = _serve(model, first, True, monkeypatch)
+    assert counted == (want_stats["steps"], 0, 0)
+    got, stats, counted, launched = _serve(model, first, False, monkeypatch)
+    assert got == want and stats == want_stats
+    assert counted == (0, stats["steps"], 1)
+    assert launched == per_call * (stats["steps"] + 1)
+    want, want_stats, _, _ = _serve(model, second, True, monkeypatch)
+    got, stats, counted, launched = _serve(model, second, False,
+                                           monkeypatch)
+    assert got == want and stats == want_stats
+    assert counted == (0, stats["steps"], 0)
+    assert launched == per_call * stats["steps"]
+
+
+def test_serve_continuous_replays_sampled_tokens(cuda, monkeypatch):
+    """At temperature 0.8 (each emission drawn outside the graph from its
+    own generator) the replayed step gives the eager step's tokens."""
+    model = _serve_model("smollm-360m", cuda)
+    reqs = _staggered(3, 12, model.cfg.vocab)
+    out = [_serve(model, reqs, eager, monkeypatch, temperature=0.8,
+                  generator=torch.Generator(device=cuda).manual_seed(9))[0]
+           for eager in (True, False, False)]
+    assert out[1] == out[0] and out[2] == out[0]
+
+
+def test_serve_graph_lives_on_the_params_and_refuses_reentry(cuda):
+    """The captured step and its states are kept for the params, one
+    entry a (slots, max_len), go away with them, are not copied with
+    them, and a call that finds its entry in use raises."""
+    import gc
+    import weakref
+    model = _serve_model("smollm-360m", cuda)
+    reqs = _staggered(4, 3, model.cfg.vocab)
+    engine.serve_continuous(model, reqs, slots=4, max_len=16)
+    engine.serve_continuous(model, reqs, slots=4, max_len=20)
+    cache = engine._SERVE_GRAPHS[model]
+    assert sorted(cache) == [(4, 16), (4, 20)]
+    entry = cache[(4, 16)]
+    entry.busy = True
+    with pytest.raises(RuntimeError, match="re-entered"):
+        engine.serve_continuous(model, reqs, slots=4, max_len=16)
+    entry.busy = False
+    twin = copy.deepcopy(model)          # starts without the graphs
+    assert twin not in engine._SERVE_GRAPHS
+    want = engine.serve_continuous(model, reqs, slots=4, max_len=16)
+    got = engine.serve_continuous(twin, reqs, slots=4, max_len=16)
+    assert [o.tolist() for o in got] == [o.tolist() for o in want]
+    assert sorted(engine._SERVE_GRAPHS[twin]) == [(4, 16)]
+    ref = weakref.ref(entry)
+    del entry, cache, model
+    gc.collect()
+    assert ref() is None
+
+
 # -- training on a mesh and the sharded grid on one card ---------------------
 
 def test_trainer_on_card_mesh_restores_bit_for_bit(card_mesh, tmp_path):
