@@ -41,7 +41,7 @@ class Run:
     counters: Dict[str, float]
     spans: Optional[list] = None      # the port's wall spans
     trace: Optional[devtrace.DeviceTrace] = None
-    moe_inputs: list = dataclasses.field(default_factory=list)
+    moe_tap: Optional[MoeTap] = None
     layer_log: Optional[StageLog] = None
     float_weights: Optional[dict] = None
     memory_peak_bytes: int = 0
@@ -96,48 +96,143 @@ def _counter_totals() -> Dict[str, float]:
     return out
 
 
+class DeviceRow:
+    """A row number kept in a one-element long tensor on the device, for
+    copies that index a buffer by it (``index_copy_``): a copy recorded
+    once in a captured step reads the tensor at each replay, and so lands
+    on the row current then.  `set` writes it from the host (``fill_``,
+    only when it changes) and clamps there: past the last of `rows` rows
+    it points at a spill row (row `rows`), which no reader takes, since
+    an index out of range on the device would end the run."""
+
+    def __init__(self, rows: int, device: torch.device):
+        self.rows, self.value = rows, rows
+        self.t = torch.full((1,), rows, dtype=torch.long, device=device)
+
+    def set(self, i: int) -> None:
+        i = min(max(i, 0), self.rows)
+        if i != self.value:
+            self.t.fill_(i)
+            self.value = i
+
+    def buffer(self, x: torch.Tensor) -> torch.Tensor:
+        """An empty buffer of `rows` + 1 rows shaped like `x`."""
+        return x.new_empty((self.rows + 1,) + tuple(x.shape))
+
+    def copy(self, buf: torch.Tensor, x: torch.Tensor) -> None:
+        buf.index_copy_(0, self.t, x[None])
+
+
 class StageLog:
     """Each step's layer inputs, the last layer's output and the logits,
     for a check that follows the served model stage by stage: copied
-    into buffers of `steps` steps that the first step recorded (in the
-    warm-up) allocates, so that the window allocates nothing for it and
-    keeps no tensor of the program alive."""
+    into buffers of `steps` steps (and a spill row) that the first step
+    run allocates (in the warm-up, eagerly), so that the window allocates
+    nothing for it and keeps no tensor of the program alive.  The layer
+    copies go through a `DeviceRow` that the step wrapper sets, so that
+    they are right in a step replayed from a CUDA graph as in an eager
+    one; a layer's place is found by the identity of its params, not by
+    counting calls (a capture runs the step twice)."""
 
-    def __init__(self, steps: int, n_layers: int):
+    def __init__(self, steps: int, n_layers: int, device: torch.device):
         self.steps, self.n_layers = steps, n_layers
-        self.io = self.logits = None   # [steps, n_layers + 1, ...], [steps, ...]
-        self.step, self.j = -1, 0
+        self.row = DeviceRow(steps, device)
+        self.io = self.logits = None   # [steps + 1, n_layers + 1, ...]
+        self.layer_of: Dict[int, int] = {}
+        self.step = -1
 
     def rewind(self) -> None:
         self.step = -1
 
     def start_step(self) -> None:
-        self.step, self.j = self.step + 1, 0
+        self.step += 1
+        self.row.set(self.step)
 
-    def layer_io(self, x: torch.Tensor) -> None:
+    def layer_io(self, p, x: torch.Tensor, out: torch.Tensor) -> None:
+        """Layer `p` took `x` and gave `out`: `x` is kept for the first
+        layer only (the embedding's output), `out` for every layer."""
+        j = self.layer_of.setdefault(id(p), len(self.layer_of))
         if self.io is None:
-            self.io = x.new_empty((self.steps, self.n_layers + 1) +
+            self.io = x.new_empty((self.steps + 1, self.n_layers + 1) +
                                   tuple(x.shape))
-        if self.step < self.steps:     # a longer run fails schedule_steps
-            self.io[self.step, self.j].copy_(x)
-        self.j += 1
+        if j == 0:
+            self.row.copy(self.io[:, 0], x)
+        self.row.copy(self.io[:, j + 1], out)
 
     def step_logits(self, t: torch.Tensor) -> None:
         if self.logits is None:
-            self.logits = t.new_empty((self.steps,) + tuple(t.shape))
-        if self.step < self.steps:
-            self.logits[self.step].copy_(t)
+            self.logits = self.row.buffer(t)
+        self.row.copy(self.logits, t)
+
+
+class MoeTap:
+    """In traced runs, what `moe_apply_roofline` reads of each MoE layer
+    over the profiled steps: its input, copied into a buffer of
+    `PROFILED_STEPS` rows through a `DeviceRow`, and the device time of
+    its call, between two timing events recorded around it
+    (``external``, so that a capture records them as graph nodes).  In a
+    step replayed from a CUDA graph both run inside the replay; the
+    events of a profiled step are read at the next step's start
+    (`collect`), when the engine's readback has already waited for it."""
+
+    def __init__(self, rows: int, device: torch.device):
+        self.row = DeviceRow(rows, device)
+        # id(params) -> (router weight, inputs, start event, end event)
+        self.layers: Dict[int, tuple] = {}
+        self.pending = False
+        self.steps, self.seconds = 0, 0.0
+
+    def start_step(self, window: devtrace.StepWindow) -> None:
+        """Before a step: its row if the profiler is on, else spill."""
+        self.pending = window.active
+        self.row.set(window.seen - 1 - window.first if self.pending
+                     else self.row.rows)
+
+    def collect(self) -> None:
+        if not self.pending:
+            return
+        self.pending = False
+        for *_, start, end in self.layers.values():
+            if start is not None:
+                end.synchronize()
+                self.seconds += start.elapsed_time(end) / 1e3
+        self.steps += 1
+
+    def __call__(self, real, params, x, cfg):
+        key = id(params)
+        if key not in self.layers:
+            timing = [torch.cuda.Event(enable_timing=True, external=True)
+                      for _ in range(2)] if x.is_cuda else [None, None]
+            self.layers[key] = (params.router["w"], self.row.buffer(x),
+                                *timing)
+        _, inputs, start, end = self.layers[key]
+        self.row.copy(inputs, x)
+        if start is not None:
+            start.record()
+        out = real(params, x, cfg)
+        if end is not None:
+            end.record()
+        return out
+
+    def inputs(self):
+        """(router weight, [steps, ...] inputs) of each MoE layer over
+        the steps collected."""
+        return [(w, buf[:self.steps])
+                for w, buf, *_ in self.layers.values()]
 
 
 class _Wrapped:
-    """Wrappers around the port's decode step, layer and MoE layer for the
-    window, restored on exit: with a `StepWindow`, the profiler's steps
-    and the ``bench.*`` ranges; with a `StageLog`, what it records."""
+    """Wrappers around the port's decode step, layer and MoE layer,
+    restored on exit: with a `StepWindow`, the profiler's steps and the
+    ``bench.*`` ranges; with a `StageLog` or a `MoeTap`, what they
+    record.  The layer and MoE wrappers run when a step is captured as
+    a CUDA graph, not when it is replayed, so the taps are installed
+    before the warm-up, which captures it."""
 
     def __init__(self, window: Optional[devtrace.StepWindow],
-                 moe_inputs: list, layer_log: Optional[StageLog]):
+                 moe: Optional[MoeTap], layer_log: Optional[StageLog]):
         self.window = window
-        self.moe_inputs = moe_inputs
+        self.moe = moe
         self.layer_log = layer_log
 
     def __enter__(self):
@@ -145,15 +240,19 @@ class _Wrapped:
         self._lm, self._ffn = lm, ffn
         self._saved = (lm.decode_step, lm.layer_decode, ffn.moe_apply)
         real_step, real_layer, real_moe = self._saved
-        window, seen, log = self.window, self.moe_inputs, self.layer_log
+        window, moe, log = self.window, self.moe, self.layer_log
 
         def decode_step(*a, **k):
+            if moe is not None:
+                moe.collect()
             if log is not None:
                 log.start_step()
             if window is None:
                 out = real_step(*a, **k)
             else:
                 window.step()
+                if moe is not None:
+                    moe.start_step(window)
                 with torch.profiler.record_function("bench.decode_step"):
                     out = real_step(*a, **k)
             if log is not None:
@@ -161,23 +260,19 @@ class _Wrapped:
             return out
 
         def layer_decode(p, x, *a, **k):
-            if log.j == 0:
-                log.layer_io(x)
             out = real_layer(p, x, *a, **k)
-            log.layer_io(out[0])
+            log.layer_io(p, x, out[0])
             return out
 
         def moe_apply(params, x, cfg):
-            if window.active:
-                seen.append((window.seen - 1, params.router["w"], x))
             with torch.profiler.record_function("bench.moe_apply"):
-                return real_moe(params, x, cfg)
+                return moe(real_moe, params, x, cfg)
 
-        if window is not None or log is not None:
+        if window is not None or moe is not None or log is not None:
             lm.decode_step = decode_step
         if log is not None:
             lm.layer_decode = layer_decode
-        if window is not None:
+        if moe is not None:
             ffn.moe_apply = moe_apply
         return self
 
@@ -226,9 +321,12 @@ def execute(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     reqs = traffic.requests(mix, seed, seconds, cfg.vocab)
     sched = schedule.simulate([(len(r.prompt), r.steps) for r in reqs],
                               slots)
-    layer_log = StageLog(sched.steps, cfg.n_layers) if \
+    layer_log = StageLog(sched.steps, cfg.n_layers, dev) if \
         cell.limits.get("follow") == "stages" else None
-    with _Wrapped(None, [], layer_log):
+    moe = MoeTap(PROFILED_STEPS, dev) if trace and any(
+        f in ("moe", "moe_dense") for _, f in cfg.layer_kinds()) else None
+    # the warm-up captures the step a replay runs: the taps go in first
+    with _Wrapped(None, moe, layer_log):
         serve(traffic.warmup_requests(mix, cfg.vocab))
     _sync(dev)
     if layer_log is not None:
@@ -238,18 +336,19 @@ def execute(cell: spec.Cell, seed: int, seconds: float, trace: bool,
                             for _, r in readers)
     window = devtrace.StepWindow(
         max(0, sched.steps // 2 - PROFILED_STEPS // 2), PROFILED_STEPS, dev)
-    moe_inputs: list = []
     obs_trace.configure(enabled=spans_on, capacity=SPAN_CAPACITY)
     obs_trace.get_tracer().clear()
     before = _counter_totals()
     stats: dict = {}
     setup_s = time.perf_counter() - t_start
-    with _Wrapped(window if trace else None, moe_inputs, layer_log):
+    with _Wrapped(window if trace else None, moe, layer_log):
         _sync(dev)
         t0 = time.perf_counter()
         outputs = serve(reqs, stats)
         _sync(dev)
         window_s = time.perf_counter() - t0
+    if moe is not None:
+        moe.collect()
     after = _counter_totals()
     spans = [e for e in obs_trace.get_tracer().events()
              if e.track == obs_trace.WALL_TRACK] if spans_on else None
@@ -263,7 +362,7 @@ def execute(cell: spec.Cell, seed: int, seconds: float, trace: bool,
               counters={k: after.get(k, 0.0) - before.get(k, 0.0)
                         for k in after},
               spans=spans, trace=window.trace() if trace else None,
-              moe_inputs=moe_inputs, layer_log=layer_log,
+              moe_tap=moe, layer_log=layer_log,
               float_weights=w.float_weights,
               memory_peak_bytes=int(peak))
     metrics = {}
@@ -277,8 +376,8 @@ def execute(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         result["window_s"] = run.trace.window_s
         result["breakdown"] = run.trace.breakdown()
     # free the program's state before the reference runs
-    run.moe_inputs = []
-    del w.model, moe_inputs
+    run.moe_tap = None
+    del w.model, moe
     run.trace = None
     gc.collect()
     if dev.type == "cuda":

@@ -106,10 +106,11 @@ def stage_readings(cell, run, dev, control: bool) -> Dict:
     ent = schedule.entries(run.sched, prompts, run.outputs, device=dev)
     mask, tok = schedule.served(ent, prompts, run.outputs)
     log = run.layer_log
-    inputs = [log.io[:, j, :, 0].reshape(len(ent), -1).to(torch.float32)
-              for j in range(log.io.shape[1])]
-    served = log.logits[:, :, -1].reshape(len(ent), -1)[mask].to(
-        torch.float32)
+    # the spill row past `log.steps` is not the window's
+    io, out = log.io[:log.steps], log.logits[:log.steps]
+    inputs = [io[:, j, :, 0].reshape(len(ent), -1).to(torch.float32)
+              for j in range(io.shape[1])]
+    served = out[:, :, -1].reshape(len(ent), -1)[mask].to(torch.float32)
     ref_mod, model = cell.reference(), cell.config["model"]
     outs, head = ref_mod.stages(run.float_weights, model, ent, inputs, mask)
 

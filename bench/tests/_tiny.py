@@ -35,11 +35,6 @@ CELLS = {"tiny-serve": ("tiny-dense", "tiny-mix", TINY, "dense_gqa", MIX),
 LIMITS = {"logit_gap": 0.05, "schedule_steps": 0, "failed": 0}
 MOE_LIMITS = {"stage_err": 0.02, "token_mismatch": 0, "schedule_steps": 0,
               "failed": 0}
-# the MoE layer's reader, which the tiny MoE cells drive whether or not a
-# cell of `BENCHMARK.json` names it
-MOE_METRIC = {"name": "moe_apply_roofline", "unit": "%", "better": "higher",
-              "source": "device_trace", "layer": "MoE experts",
-              "moves": "serve_tokens_per_s", "workloads": []}
 
 
 def _write(path: Path, obj) -> None:
@@ -71,8 +66,6 @@ def tiny_root(tmp: Path, extra_per_layer=()) -> Path:
         bench["workloads"].append({"name": name, "config": config,
                                    "traffic": mix, "chips": 1,
                                    "why": "test"})
-    if not any(m["name"] == MOE_METRIC["name"] for m in bench["per_layer"]):
-        bench["per_layer"].append(dict(MOE_METRIC))
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
             m["workloads"] = [w["name"] for w in bench["workloads"]]
