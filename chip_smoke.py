@@ -7,7 +7,7 @@ Drives only the port (no JAX, nothing of `repro`).  Each phase prints its
 lines; any failure exits nonzero, and nothing is caught:
 
   1. build every kernel of the port from `src/repro_torch/kernels/csrc`
-     (six sources, one nvcc each, in parallel) for sm_90a and print the
+     (seven sources, one nvcc each, in parallel) for sm_90a and print the
      build time and each kernel's registers, shared memory and spills;
   2. the kernel against its plain PyTorch version on the card, at the four
      SmolLM-360M projection shapes and a ragged one, M = 4 (CUDA-core
@@ -218,10 +218,26 @@ lines; any failure exits nonzero, and nothing is caught:
      on the fake 16 x 16 mesh, and the roofline bound of phase 17b's step
      counted on a one-rank fake mesh, printed beside 17b's measured ms a
      step and held below it;
+ 20. latent attention (DeepSeek-V2-Lite): (a) the absorbed decode kernel
+     (`kernels.mla_decode`, built in phase 1) against its plain version
+     in f32 on the card, at dsv2-lite-serve's 32 slots x 2,048 cached
+     positions, at the published widths (16 heads, latent 512, RoPE 64),
+     positions mixed up to 2,047, queries at the serving scale and at 8x:
+     within the bound of two f32 orders of the same sums and one bf16
+     rounding, and the largest gap under 1e-2 of the largest output;
+     (b) its device time (CUDA graph, events) at those positions and
+     with every slot at 2,047, beside its bound from
+     `bench/metrics/mla_work.py`'s bytes and FLOPs; (c) the whole model
+     (27 layers, 64 experts, bf16, 8-bit planes, seeded params) through
+     `serve_continuous` at 32 slots, warmed up at the same slots and
+     max_len, then with the launch counts set to 0 just before: the
+     kernel's launches and ``attention.mla_decodes{path=kernel}`` equal
+     27 x the batched steps, the bit-plane kernel's equal the packed
+     projections x the steps, and every step replayed from the graph;
 
 then one JSON line of kernel records (the bit-plane kernel's launches are
 phases 4's, 15's, 16's and 18's, the step kernel's phase 8's, phase 14's,
-phase 18's and phase 19's),
+phase 18's and phase 19's, the MLA decode kernel's phase 20c's),
 the card's name and power limit as nvidia-smi prints them, and the
 result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -3182,7 +3198,7 @@ def phase_captured_serve(bpm, configs, lm, engine, mesh, dev, smi):
     print(f"[18c capture] {cfg.name}, {cfg.n_layers} layers, bf16, {BITS}-"
           f"bit planes, batch {b}, max_len {SERVE_MAX_LEN}: first call "
           f"(warm-up on copies, capture, replay) {capture_s:.3f} s; the "
-          f"graph holds {graph.launches} bit-plane launches (packed "
+          f"graph holds {graph.launches['bitplane_matmul']} bit-plane launches (packed "
           f"projections {per_call}); memory above the states after it: "
           f"{alloc / 1e6:.2f} MB allocated, {reserved / 1e6:.2f} MB "
           f"reserved (the graph's pool and the warm-up's cached blocks)")
@@ -3198,7 +3214,7 @@ def phase_captured_serve(bpm, configs, lm, engine, mesh, dev, smi):
     print(f"[18c launches] bit-plane kernel launches in the {REPLAY_STEPS} "
           f"replays: {launched} (expected {per_call} x {REPLAY_STEPS} = "
           f"{per_call * REPLAY_STEPS})")
-    if graph.launches != per_call or launched != per_call * REPLAY_STEPS:
+    if graph.launches.get("bitplane_matmul") != per_call or launched != per_call * REPLAY_STEPS:
         fail("18c the replays did not count one launch a packed projection")
     pos = [PRIME_LEN + REPLAY_STEPS]
 
@@ -3697,6 +3713,196 @@ def phase_mesh_slice(bpm, cs, ks, dev, smi, train_step_s):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# phase 20: latent attention (DeepSeek-V2-Lite) on the card
+# ---------------------------------------------------------------------------
+
+MLA_SLOTS, MLA_LEN = 32, 2048      # dsv2-lite-serve's slots and max_len
+# 20a's positions: a 32-row chunk's first and last rows, the cache's last,
+# then seeded ones (the `cuda` test's)
+MLA_POSITIONS = [0, 1, 31, 32, 63, 64, 65, 127, 128, 200, 511, 512, 1000,
+                 1023, 1024, 2046, 2047]
+MLA_SERVE_LEN = 96                 # 20c's max_len: prompts and outputs fit
+
+
+def _mla_bound(q, ckv, kpe, pos, scale, want):
+    """What two f32 orders of the same sums may differ by, then one bf16
+    rounding (the kernel's bf16 products are exact on the tensor cores,
+    and its probabilities split exactly into three bf16 parts): each
+    score by (K + 2) 2^-23 scale (|q| @ |row|), the largest over the
+    slot's live rows; the softmax moves by at most twice that in relative
+    terms, so the output by twice that times the slot's largest |ckv|
+    (1e-6 of it more for the exponentials' own roundings); the bf16
+    rounding adds 2^-8 of the value."""
+    rows = torch.cat([ckv, kpe], -1).float().abs()           # [B, T, K]
+    live = torch.arange(ckv.shape[1], device=q.device)[None] <= pos[:, None]
+    mags = torch.einsum("bhk,btk->bht", q.float().abs(), rows)
+    mags = mags.masked_fill(~live[:, None], 0).amax(-1)      # [B, H]
+    ds = (q.shape[-1] + 2) * 2.0 ** -23 * scale * mags
+    cmax = (ckv.float().abs() * live[..., None]).amax((1, 2))  # [B]
+    return 2.0 ** -8 * want.abs() + \
+        (2 * ds + 1e-6)[..., None] * cmax[:, None, None]
+
+
+def _mla_operands(mk, dev):
+    """Seeded q [32, 16, 576], ckv [32, 2,048, 512], kpe [32, 2,048, 64]
+    in bf16, and 20a's positions [32]."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    b, t, bf = MLA_SLOTS, MLA_LEN, torch.bfloat16
+    q = torch.randn(b, mk.HEADS, mk.LATENT + mk.ROPE, device=dev,
+                    generator=g).to(bf)
+    ckv = torch.randn(b, t, mk.LATENT, device=dev, generator=g).to(bf)
+    kpe = torch.randn(b, t, mk.ROPE, device=dev, generator=g).to(bf)
+    seeded = torch.randint(0, t, (b - len(MLA_POSITIONS),),
+                           generator=torch.Generator().manual_seed(3))
+    pos = torch.tensor(MLA_POSITIONS + seeded.tolist(), device=dev)
+    return q, ckv, kpe, pos
+
+
+def phase_mla_kernel(mk, scale, q, ckv, kpe, pos):
+    """20a: the kernel against the plain version in f32.  Returns the
+    largest |d|."""
+    worst = 0.0
+    for mult in (1, 8):
+        qm = q * mult                     # exact: a power of two
+        got = mk.mla_decode(qm, ckv, kpe, pos, scale)
+        want = mk.mla_decode_plain(qm.float(), ckv, kpe, pos, scale)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16:
+            fail(f"20a the kernel returned {got.dtype}, not bf16")
+        err = (got.float() - want).abs()
+        over = float((err - _mla_bound(qm, ckv, kpe, pos, scale,
+                                       want)).max())
+        rel = float(err.max()) / float(want.abs().max())
+        print(f"[20a kernel] mla_decode vs plain (f32) at {MLA_SLOTS} slots "
+              f"x {MLA_LEN} positions, positions {int(pos.min())}-"
+              f"{int(pos.max())}, q x{mult}: max |d| {float(err.max()):.3e}"
+              f" = {rel:.2e} of the largest |out|; most over the bound "
+              f"{over:.3e} (<= 0 holds)")
+        if over > 0 or rel >= 1e-2:
+            fail(f"20a the kernel is outside its bound at q x{mult}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def phase_mla_timing(mk, arith, mla_work, scale, q, ckv, kpe, pos, smi):
+    """20b: device time of one call beside its bound, at 20a's positions
+    and with every slot at the cache's last row.  Returns the record's
+    numbers at 20a's positions."""
+    n = _copies(2 * (ckv.numel() + kpe.numel()))
+    caches = [(ckv.clone(), kpe.clone()) for _ in range(n)]
+    full = torch.full_like(pos, MLA_LEN - 1)
+    record = {}
+    for tag, p in (("mixed", pos), ("full", full)):
+        ms = _time_ms(lambda i: mk.mla_decode(q, *caches[i % n], p, scale),
+                      n)
+        at = p.tolist()
+        heads, latent, rope = mk.HEADS, mk.LATENT, mk.ROPE
+        nbytes = mla_work.call_bytes(at, heads, latent, rope)
+        flops = mla_work.call_flops(at, heads, latent, rope)
+        bound = 1e3 * arith.roofline_s(nbytes, flops)
+        by = "bytes" if nbytes / arith.HBM_BYTES_PER_S >= \
+            flops / arith.BF16_FLOP_PER_S else "operations"
+        print(f"[20b time] mla_decode, {MLA_SLOTS} slots, {sum(at) + len(at)}"
+              f" live rows ({tag} positions, {mk.splits(len(at), MLA_LEN, _sms())}"
+              f" splits a slot): {ms * 1e3:.2f} us, bound {bound * 1e3:.2f}"
+              f" us ({by}), {100 * bound / ms:.1f}% of it, "
+              f"{nbytes / ms / 1e6:.0f} GB/s; {smi}")
+        if tag == "mixed":
+            record = {"ms": ms, "bound_ms": bound, "bound_by": by}
+    del caches
+    return record
+
+
+def phase_mla_serve(bpm, mk, configs, lm, engine, metrics, dev, smi):
+    """20c: the whole model served on the main path, its launches counted.
+    Returns the MLA decode kernel's launches."""
+    cfg = configs.get("deepseek-v2-lite", quant_bits=BITS)
+    torch.cuda.reset_peak_memory_stats()      # the peak printed is 20c's
+    t0 = time.perf_counter()
+    model = lm.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    layers = sum(1 for kinds in cfg.layer_kinds() if kinds[0] == "mla")
+    per_step = lm.packed_projections(model)
+    slots, max_len = MLA_SLOTS, MLA_SERVE_LEN
+    # warm-up at the counted call's slots and max_len: captures the step
+    engine.serve_continuous(model, [engine.Request(np.ones(2, np.int64), 2)],
+                            slots=slots, max_len=max_len)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(20)
+    reqs = [engine.Request(rng.integers(0, cfg.vocab, int(rng.integers(1, 41))),
+                           int(rng.integers(1, 41))) for _ in range(48)]
+    decodes = mk.DECODES
+    steps = metrics.counter("serve.decode_steps")
+    before = (decodes.value(path="kernel"), steps.value(mode="eager"),
+              steps.value(mode="graph"))
+    stats = {}
+    # ---- the main path, counted ----
+    mk.launches = 0
+    bpm.launches = 0
+    t0 = time.perf_counter()
+    outs = engine.serve_continuous(model, reqs, slots=slots, max_len=max_len,
+                                   stats=stats)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launched, planes = mk.launches, bpm.launches
+    # ---- end of the counted main path ----
+    counted = (decodes.value(path="kernel") - before[0],
+               steps.value(mode="eager") - before[1],
+               steps.value(mode="graph") - before[2])
+    for r, o in zip(reqs, outs):
+        if len(o) != r.steps or o.min() < 0 or o.max() >= cfg.vocab:
+            fail("20c serve_continuous returned a wrong token stream")
+    n = stats["steps"]
+    emitted = sum(len(o) for o in outs)
+    print(f"[20c serve] {cfg.name}: {cfg.n_layers} layers ({layers} mla), "
+          f"{cfg.n_experts} experts top {cfg.top_k} + {cfg.n_shared} shared,"
+          f" {cfg.dtype}, {BITS}-bit planes; init {init_s:.1f} s; "
+          f"serve_continuous: {len(reqs)} requests over {slots} slots, "
+          f"{emitted} tokens in {serve_s:.3f} s ({emitted / serve_s:.1f} "
+          f"tokens/s), {n} batched steps ({counted[2]} replayed, "
+          f"{counted[1]} eager), occupancy {stats['occupancy']:.3f}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {smi}")
+    print(f"[20c launches] mla_decode {launched}, attention.mla_decodes"
+          f"{{path=kernel}} {counted[0]:g} (expected {layers} x {n} = "
+          f"{layers * n}); bit-plane {planes} (expected {per_step} x {n} = "
+          f"{per_step * n})")
+    if launched != layers * n or counted[0] != layers * n or n == 0:
+        fail("20c the main path did not run each MLA decode through the "
+             "kernel once")
+    if planes != per_step * n:
+        fail("20c the main path did not run each packed projection through "
+             "the bit-plane kernel once")
+    if counted[1:] != (0, n):
+        fail("20c the counted call did not replay every step from the graph")
+    del model, outs
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_mla(bpm, configs, lm, engine, metrics, dev, smi):
+    """Phase 20 (see the module's docstring).  Returns the kernel's record:
+    launches, largest |d| and 20b's times."""
+    from bench.metrics import arith, mla_work
+    from repro_torch.kernels import mla_decode as mk
+    from repro_torch.models import mla
+    t0 = time.perf_counter()
+    scale = mla.softmax_scale(configs.get("deepseek-v2-lite"))
+    q, ckv, kpe, pos = _mla_operands(mk, dev)
+    worst = phase_mla_kernel(mk, scale, q, ckv, kpe, pos)
+    timing = phase_mla_timing(mk, arith, mla_work, scale, q, ckv, kpe, pos,
+                              smi)
+    del q, ckv, kpe
+    launched = phase_mla_serve(bpm, mk, configs, lm, engine, metrics, dev,
+                               smi)
+    print(f"[20 mla] phase 20 took {time.perf_counter() - t0:.1f} s")
+    return {"name": "mla_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mla_decode.cu",
+            "replaces": None,    # the JAX package has no latent attention
+            "launches": launched, "max_abs_err": worst, **timing}
+
+
 def main():
     sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
@@ -3711,6 +3917,7 @@ def main():
     from repro_torch.kernels import bulk_bitwise as bb
     from repro_torch.kernels import comefa_sim, nvcc, ops, ref
     from repro_torch.kernels import comefa_step as cs
+    from repro_torch.kernels import mla_decode as mk
     from repro_torch.models import common, lm
     from repro_torch.obs import metrics
     from repro_torch.quant import bitplane
@@ -3725,8 +3932,8 @@ def main():
           f"{torch.version.cuda}) on {torch.cuda.get_device_name(0)}; {smi}")
     ks = Bitserial(bt, bb, bsr, bsm)
     phase_build(nvcc, (bpm.SOURCE, cs.SOURCE, bt.SOURCE, bb.SOURCE,
-                       bsr.SOURCE, bsm.SOURCE),
-                ("1 build", "6 build") + ("11 build",) * 4)
+                       bsr.SOURCE, bsm.SOURCE, mk.SOURCE),
+                ("1 build", "6 build") + ("11 build",) * 4 + ("20 build",))
     worst = phase_kernel_vs_plain(bpm, bitplane, dev)
     phase_reduced(bpm, configs, common, lm, engine, dev)
     launched, step_s = phase_full(bpm, configs, common, lm, engine, dev)
@@ -3767,6 +3974,7 @@ def main():
     train_step_s = phase_train(bpm, cs, ks, dev, smi)
     dist_launched = phase_distribution(bpm, cs, dev, smi)
     mesh_launched = phase_mesh_slice(bpm, cs, ks, dev, smi, train_step_s)
+    mla_record = phase_mla(bpm, configs, lm, engine, metrics, dev, smi)
     record = {"kernels": [
         {"name": "bitplane_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bitplane_matmul.cu",
@@ -3786,6 +3994,7 @@ def main():
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": serial_launched[name],
             "max_abs_err": ks.err[name], **serial[name]})
+    record["kernels"].append(mla_record)
     print(json.dumps(record))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

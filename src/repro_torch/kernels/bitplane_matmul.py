@@ -15,7 +15,8 @@ same as casting the f32 result.
 PyTorch version (`bitplane_matmul_plain`, the same arithmetic: integer
 weights, f32 sums, scale last, then the cast to ``out_dtype``); a CUDA
 tensor launches the kernel or raises.  The module-level `launches` counts
-kernel launches, so a run can show that its path went through the kernel.
+kernel launches, so a run can show that its path went through the kernel
+(through `launch_count`, so that replays of a recorded step count too).
 
 K is split across at most 8 CTAs (`geometry`), and the splits' partial
 sums meet in a fixed order in a thread block cluster, so a result never
@@ -34,7 +35,7 @@ from pathlib import Path
 import torch
 
 from ..quant.bitplane import LANES, unpack
-from . import nvcc
+from . import launch_count, nvcc
 
 SOURCE = Path(__file__).with_name("csrc") / "bitplane_matmul.cu"
 
@@ -49,6 +50,14 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 launches = 0          # kernel launches since the last reset (set it to 0)
 _lib = None
+
+
+def _count(n: int) -> None:
+    global launches
+    launches += n
+
+
+launch_count.register("bitplane_matmul", _count)
 
 
 def build() -> Path:
@@ -153,7 +162,6 @@ def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
     launch fails; meta tensors (shapes only, no data) give the output's
     shape through `shape_only`, and launch nothing.
     """
-    global launches
     _check(x, planes, scale, bits, out_dtype)
     if x.device.type == "meta":
         return shape_only(x, planes, scale, bits, out_dtype)
@@ -182,5 +190,5 @@ def bitplane_matmul(x: torch.Tensor, planes: torch.Tensor,
         raise RuntimeError(f"bitplane_matmul kernel launch failed: "
                            f"cudaError {err} (M={m}, K={k}, N={n}, "
                            f"bits={bits}, {geo})")
-    launches += 1
+    launch_count.launched("bitplane_matmul")
     return y

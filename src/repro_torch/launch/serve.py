@@ -5,8 +5,9 @@ DOC = """Serving launcher: batched generation on one device.
 
 --arch is one of the ten configs of `repro_torch.configs` (xlstm-1.3b,
 mixtral-8x7b, arctic-480b, smollm-360m, gemma2-27b, gemma3-27b,
-starcoder2-7b, recurrentgemma-2b, whisper-small, paligemma-3b); --reduced
-runs a tiny config of the same family.  An encoder-decoder
+starcoder2-7b, recurrentgemma-2b, whisper-small, paligemma-3b) or the
+port-only deepseek-v2-lite; --reduced runs a tiny config of the same
+family.  An encoder-decoder
 (whisper-small) encodes seeded random frame embeddings [batch,
 frontend_len, d_model], standing in for its audio frontend.  --quant w
 stores every projection as w-bit packed bit-planes (the CoMeFa path)
@@ -16,6 +17,7 @@ random, from a seeded generator.  --device defaults to cuda and raises
 where there is no GPU; --device cpu runs the plain PyTorch versions.
 """
 import argparse
+import dataclasses
 
 
 def main(argv=None):
@@ -37,14 +39,16 @@ def main(argv=None):
     from repro_torch.models import common, lm
     from repro_torch.serve import engine
 
-    if args.arch not in configs.REGISTRY:
+    if args.arch not in configs.NAMES:
         ap.error(f"--arch {args.arch!r}: the port runs "
-                 f"{', '.join(configs.ARCHS)}")
+                 f"{', '.join(configs.NAMES)}")
     cfg = configs.get(args.arch, quant_bits=args.quant)
     if args.reduced:
         cfg = common.reduced(cfg, vocab=512, d_model=128, d_ff=256,
-                             n_layers=max(len(cfg.pattern), 2),
                              quant_bits=args.quant)
+        # the JAX configs' reduced depth; an MLA config keeps its own
+        if cfg.n_layers < 2:
+            cfg = dataclasses.replace(cfg, n_layers=2)
     dev = common.device(args.device)
     params = lm.init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import ClassVar, Optional, Tuple
 
 import torch
 from torch import nn
@@ -75,6 +75,9 @@ class Config:
     remat: bool = True
     scan_layers: bool = True
 
+    # what `reduced` shrinks besides the fields every config shrinks
+    REDUCED: ClassVar[dict] = {}
+
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
@@ -83,6 +86,24 @@ class Config:
     def adtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    # the FFN's shape, as `MLAConfig` overrides it (properties, so that
+    # `dataclasses.asdict` stays the JAX package's)
+    @property
+    def dense_width(self) -> int:
+        """The width of an ``mlp`` layer."""
+        return self.d_ff
+
+    @property
+    def shared_width(self) -> int:
+        """The width of the one gated MLP that holds an MoE layer's
+        shared experts, run beside `moe_apply`; 0 where there are none."""
+        return 0
+
+    @property
+    def renormalise_gates(self) -> bool:
+        """Whether the MoE's top-k gates are renormalised to sum to 1."""
+        return True
+
     def layer_kinds(self, n_layers: Optional[int] = None,
                     pattern=None) -> list:
         pattern = pattern or self.pattern
@@ -90,8 +111,57 @@ class Config:
         return [pattern[i % len(pattern)] for i in range(n)]
 
 
+@dataclasses.dataclass(frozen=True)
+class MLAConfig(Config):
+    """The port's fields for multi-head latent attention (the ``mla``
+    mixer) and fine-grained experts (DeepSeek-V2 [arXiv:2405.04434]),
+    which the JAX package's `Config` does not have.
+
+    Attention: a query of ``qk_nope_dim + qk_rope_dim`` a head, a
+    ``kv_lora_rank``-wide latent and a ``qk_rope_dim``-wide RoPE key
+    shared by the heads, values of ``v_head_dim``; RoPE scaled by YaRN
+    (``yarn_*``, as the source's ``rope_scaling``; a factor of 1 is plain
+    RoPE).  FFNs: ``mlp`` layers of width ``d_ff_dense`` (0: ``d_ff``),
+    ``n_shared`` always-on experts of width ``d_ff`` beside each MoE, and
+    with ``norm_topk`` False the top-k gates left as the router's
+    probabilities."""
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    d_ff_dense: int = 0
+    n_shared: int = 0
+    norm_topk: bool = True
+    yarn_factor: float = 1.0
+    yarn_original_len: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+
+    # every MLA width, the dense width, and one dense and two MoE layers
+    # of 8 experts, top 3, at a capacity that drops nothing (3 x 3 / 8 > 1)
+    REDUCED: ClassVar[dict] = dict(
+        kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16,
+        d_ff_dense=192, n_experts=8, top_k=3, capacity_factor=3.0,
+        n_layers=3)
+
+    @property
+    def dense_width(self) -> int:
+        return self.d_ff_dense or self.d_ff
+
+    @property
+    def shared_width(self) -> int:
+        return self.n_shared * self.d_ff
+
+    @property
+    def renormalise_gates(self) -> bool:
+        return self.norm_topk
+
+
 def reduced(cfg: Config, **overrides) -> Config:
-    """Tiny same-family config for CPU smoke tests."""
+    """Tiny same-family config for CPU smoke tests (an `MLAConfig` also
+    shrinks its own widths, `MLAConfig.REDUCED`)."""
     shrink = dict(
         n_layers=max(len(cfg.pattern), 2 if cfg.family == "encdec" else
                      len(cfg.pattern)),
@@ -104,6 +174,7 @@ def reduced(cfg: Config, **overrides) -> Config:
         frontend_len=min(cfg.frontend_len, 8) if cfg.frontend_len else 0,
         lru_width=0, scan_layers=False, remat=False, dtype="float32",
     )
+    shrink.update(cfg.REDUCED)
     shrink.update(overrides)
     return dataclasses.replace(cfg, **shrink)
 

@@ -1,5 +1,7 @@
 """Feed-forward layers: the gated MLP and the capacity-based top-k MoE
-(GShard), the port of `repro.models.ffn`.
+(GShard), the port of `repro.models.ffn`; for an `MLAConfig` also the
+dense layers' own width and the shared experts' (``cfg.dense_width``,
+``cfg.shared_width``), and gates left unnormalised.
 
 The MoE routes as the JAX package does, step for step: f32 router
 logits, softmax, top-k with the gates renormalised; tokens in groups of
@@ -96,15 +98,17 @@ def moe_specs(cfg: Config) -> dict:
 def route(router_w: torch.Tensor, xg: torch.Tensor, cfg: Config,
           capacity: int):
     """The routing of token groups xg [n, g, d]: returns (probs [n, g, e],
-    gates [n, g, k] renormalised and zeroed where dropped, expert indices
+    gates [n, g, k] renormalised where ``cfg.renormalise_gates``, else
+    the router's probabilities, and zeroed where dropped, expert indices
     [n, g, k], queue positions [n, g, k] int32, keep mask [n, g, k])."""
     n, g, _ = xg.shape
     e, k = cfg.n_experts, cfg.top_k
     logits = xg.to(torch.float32) @ router_w
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, k, dim=-1)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
+    if cfg.renormalise_gates:
+        gate_vals = gate_vals / torch.clamp(
+            gate_vals.sum(-1, keepdim=True), min=1e-9)
     onehot = nn.functional.one_hot(expert_idx, e).to(torch.float32)
     # priority: choice 0 of all tokens first, then choice 1 (GShard)
     flat = rs(onehot.transpose(1, 2), n, k * g, e)

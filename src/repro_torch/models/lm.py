@@ -3,8 +3,11 @@
 The port of `repro.models.lm`: a layer is a (mixer, ffn) pair, the mixer
 ``global``, ``local`` or ``bidir`` attention, ``cross_global`` (causal
 self-attention, then cross-attention over the encoder's output),
-``mlstm``, ``slstm`` or ``rglru``, and the ffn ``mlp``, ``moe``,
-``moe_dense`` (an MoE plus a dense MLP beside it) or ``none``.  The JAX
+``mlstm``, ``slstm``, ``rglru`` or, in the port alone, ``mla`` (latent
+attention, `models.mla`), and the ffn ``mlp``, ``moe``,
+``moe_dense`` (an MoE plus a dense MLP beside it) or ``none``.  An
+`MLAConfig` gives its ``mlp`` layers their own width and its ``moe``
+layers ``ffn_shared``, the shared experts run beside the MoE.  The JAX
 package stacks homogeneous layer groups under `lax.scan`; here a stack
 is a plain `nn.ModuleList` in layer order, layer j of kind
 ``pattern[j % len(pattern)]`` (groups first, then the remainder layers,
@@ -46,12 +49,13 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
-from ..kernels import bitplane_matmul as bpm
+from ..kernels import launch_count
 from ..parallel import sharding as shd
 from ..parallel.sharding import constrain
 from . import attention as attn
 from . import common as cm
 from . import ffn as ffn_mod
+from . import mla
 from . import recurrent as rec
 from .common import Config
 
@@ -67,7 +71,8 @@ State = List[Dict[str, torch.Tensor]]
 
 _MIXER_PARAMS = {"global": attn.Attention, "local": attn.Attention,
                  "bidir": attn.Attention, "cross_global": attn.Attention,
-                 "mlstm": rec.MLSTM, "slstm": rec.SLSTM, "rglru": rec.RGLRU}
+                 "mlstm": rec.MLSTM, "slstm": rec.SLSTM, "rglru": rec.RGLRU,
+                 "mla": mla.MLA}
 FFNS = ("mlp", "moe", "moe_dense", "none")
 
 
@@ -76,7 +81,9 @@ class Layer(nn.Module):
     layer also has ``cross`` (its cross-attention) and ``nc`` (the norm
     ahead of it); a layer whose ffn is ``none`` has no ``n2`` and no
     ``ffn``; ``moe_dense`` has ``ffn`` (the MoE) and ``ffn_dense`` (a
-    packed MLP).  An unknown kind raises ValueError."""
+    packed MLP); a ``moe`` layer of a config with shared experts also
+    has ``ffn_shared`` (a packed MLP of their summed width).  An unknown
+    kind raises ValueError."""
 
     def __init__(self, cfg: Config, generator: torch.Generator, dev,
                  kinds: Tuple[str, str]):
@@ -95,9 +102,12 @@ class Layer(nn.Module):
         if f != "none":
             self.n2 = cm.RMSNorm(cfg.d_model, dev)
         if f == "mlp":
-            self.ffn = ffn_mod.MLP(cfg, generator, dev)
+            self.ffn = ffn_mod.MLP(cfg, generator, dev, d_ff=cfg.dense_width)
         elif f in ("moe", "moe_dense"):
             self.ffn = ffn_mod.MoE(cfg, generator, dev)
+        if f == "moe" and cfg.shared_width:
+            self.ffn_shared = ffn_mod.MLP(cfg, generator, dev,
+                                          d_ff=cfg.shared_width)
         if f == "moe_dense":
             self.ffn_dense = ffn_mod.MLP(cfg, generator, dev)
 
@@ -118,12 +128,16 @@ def layer_specs(cfg: Config, kinds: Tuple[str, str]) -> dict:
         s["mix"] = rec.slstm_specs(cfg)
     elif mixer == "rglru":
         s["mix"] = rec.rglru_specs(cfg)
+    elif mixer == "mla":
+        s["mix"] = mla.specs(cfg)
     if f != "none":
         s["n2"] = {"g": (None,)}
     if f == "mlp":
         s["ffn"] = ffn_mod.mlp_specs(cfg)
     elif f == "moe":
         s["ffn"] = ffn_mod.moe_specs(cfg)
+        if cfg.shared_width:
+            s["ffn_shared"] = ffn_mod.mlp_specs(cfg)
     elif f == "moe_dense":
         s["ffn"] = ffn_mod.moe_specs(cfg)
         s["ffn_dense"] = ffn_mod.mlp_specs(cfg)
@@ -132,7 +146,8 @@ def layer_specs(cfg: Config, kinds: Tuple[str, str]) -> dict:
 
 def _ffn_block(p: Layer, x, cfg: Config):
     """x plus the layer's ffn of norm(x), and the MoE's aux loss (None
-    for a layer without an MoE)."""
+    for a layer without an MoE).  Shared experts run beside `moe_apply`,
+    not inside it, so that its call is the routed experts alone."""
     f = p.kinds[1]
     if f == "none":
         return x, None
@@ -142,6 +157,8 @@ def _ffn_block(p: Layer, x, cfg: Config):
     y, aux = ffn_mod.moe_apply(p.ffn, h, cfg)
     if f == "moe_dense":
         y = y + ffn_mod.mlp_apply(p.ffn_dense, h, cfg)
+    elif cfg.shared_width:
+        y = y + ffn_mod.mlp_apply(p.ffn_shared, h, cfg)
     return x + y, aux
 
 
@@ -160,6 +177,8 @@ def layer_apply(p: Layer, x, cfg: Config, *, ctx=None, prefix_len: int = 0):
         y = rec.mlstm_apply(p.mix, h, cfg)
     elif mixer == "slstm":
         y = rec.slstm_apply(p.mix, h, cfg)
+    elif mixer == "mla":
+        y = mla.apply(p.mix, h, cfg)
     else:
         y = rec.rglru_apply(p.mix, h, cfg)
     x = constrain(x + y, ("batch", "seq", "embed"))
@@ -192,6 +211,8 @@ def layer_state_init(cfg: Config, batch: int, max_len: int, kinds,
         return rec.slstm_state_init(cfg, batch, dev)
     if mixer == "rglru":
         return rec.rglru_state_init(cfg, batch, dev)
+    if mixer == "mla":
+        return mla.init_cache(cfg, batch, max_len, dev)
     raise ValueError(f"no decode state for mixer kind {mixer!r}")
 
 
@@ -205,6 +226,8 @@ def layer_state_specs(cfg: Config, kinds) -> Dict[str, tuple]:
         return rec.slstm_state_specs()
     if mixer == "rglru":
         return rec.rglru_state_specs()
+    if mixer == "mla":
+        return mla.cache_specs()
     raise ValueError(f"no decode state for mixer kind {mixer!r}")
 
 
@@ -228,6 +251,8 @@ def layer_decode(p: Layer, x, state, index, cfg: Config, *, ctx=None):
                                    return_state=True)
     elif mixer == "rglru":
         y, state = rec.rglru_decode(p.mix, h, state, cfg)
+    elif mixer == "mla":
+        y, state = mla.decode_step(p.mix, h, state, index, cfg)
     else:
         raise ValueError(f"mixer kind {mixer!r} does not decode")
     x, _ = _ffn_block(p, x + y, cfg)
@@ -495,17 +520,17 @@ def decode_step(params: LM, token, states: State, index, *,
 class DecodeGraph:
     """One decode step captured as a CUDA graph (`capture_decode_step`):
     the graph, the static token [B, 1] and position [B] buffers it reads,
-    the logits it writes, the states it updates in place and the
-    bit-plane kernel launches one replay makes.
+    the logits it writes, the states it updates in place and the kernel
+    launches one replay makes (`launches`, {kernel name: launches}).
 
     A replay copies the token and positions into the graph's buffers
     with ``non_blocking=True`` and records `staged` once those copies are
     queued: a caller that writes a pinned host token or index again
     before it has read the step's result waits on `staged` first.  Each
-    replay adds its launches to `kernels.bitplane_matmul.launches`, as
-    the eager step's wrappers would; the capture adds those of its
-    warm-up step (run eagerly, on copies of the states) and none for the
-    recording, which launches nothing."""
+    replay counts its launches (`kernels.launch_count`), as the eager
+    step's wrappers would; the capture counts those of its warm-up step
+    (run eagerly, on copies of the states) and none for the recording,
+    which launches nothing."""
 
     def __init__(self, params: LM, token, states: State, index):
         dev = params.device
@@ -532,16 +557,10 @@ class DecodeGraph:
             torch.cuda.current_stream(dev).wait_stream(side)
             del warm
             self.graph = torch.cuda.CUDAGraph()
-            before = bpm.launches
-            try:
-                with torch.cuda.graph(self.graph):
-                    self.logits, _ = _decode(params, self.token, states,
-                                             self.pos)
-                self.launches = bpm.launches - before
-            finally:
-                # the wrappers counted calls that were recorded, not
-                # launched
-                bpm.launches = before
+            with launch_count.recording() as self.launches, \
+                    torch.cuda.graph(self.graph):
+                self.logits, _ = _decode(params, self.token, states,
+                                         self.pos)
         finally:
             cm.set_linear_hook(prev)
 
@@ -561,7 +580,7 @@ class DecodeGraph:
             self.pos.fill_(int(index))
         self.staged.record()
         self.graph.replay()
-        bpm.launches += self.launches
+        launch_count.add(self.launches)
         return self.logits.clone()
 
 

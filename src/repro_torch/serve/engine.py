@@ -411,8 +411,8 @@ class CapturedServeStep:
     graph's own buffer before each replay, so it is not baked in; the
     logits come back as a fresh tensor, and sampling stays outside.  The
     packed-linear hook is host-side and never fires here, as JAX's
-    jitted calls never see it.  Each replay adds the kernel launches it
-    makes to `kernels.bitplane_matmul.launches`, as the wrapper would.
+    jitted calls never see it.  Each replay counts the kernel launches it
+    makes (`kernels.launch_count`), as the wrappers would.
     A capture that fails raises; there is no eager fallback."""
 
     def __init__(self, cfg: cm.Config):

@@ -1141,3 +1141,119 @@ def test_sharded_grid_runs_the_step_kernel(card_mesh):
     np.testing.assert_array_equal(y1, x @ w)
     np.testing.assert_array_equal(y0, y1)
     assert s0 == s1 and l0 == l1 > 0
+
+
+# -- latent attention (MLA): the absorbed decode kernel -----------------------
+
+def _mla_bound(q, ckv, kpe, pos, scale, want):
+    """What two f32 orders of the same sums may differ by, then one bf16
+    rounding (the kernel's bf16 products are exact on the tensor cores,
+    and its probabilities split exactly into three bf16 parts, so it
+    differs from the plain version in the order of its f32 sums): each
+    score by the f32 bound of two orders of one sum,
+    (K + 2) 2^-23 scale (|q| @ |row|), the largest over the slot's live
+    rows; a softmax moves by at most twice that in relative terms, so
+    the output by twice that times the slot's largest |ckv| (1e-6 of it
+    more for the exponentials' own roundings); the bf16 rounding adds
+    2^-8 of the value."""
+    rows = torch.cat([ckv, kpe], -1).float().abs()           # [B, T, K]
+    live = torch.arange(ckv.shape[1], device=q.device)[None] <= pos[:, None]
+    mags = torch.einsum("bhk,btk->bht", q.float().abs(), rows)
+    mags = mags.masked_fill(~live[:, None], 0).amax(-1)      # [B, H]
+    ds = (q.shape[-1] + 2) * 2.0 ** -23 * scale * mags
+    cmax = (ckv.float().abs() * live[..., None]).amax((1, 2))  # [B]
+    return 2.0 ** -8 * want.abs() + \
+        (2 * ds + 1e-6)[..., None] * cmax[:, None, None]
+
+
+def test_mla_decode_kernel_matches_plain_at_published_widths(cuda):
+    """32 slots of a 2,048-position latent cache at mixed positions (a
+    chunk's first and last row, the cache's last) against the plain
+    version in f32, within `_mla_bound`; at the serving scale of the
+    queries and at 8x (a sharp softmax, scores in the tens)."""
+    from repro_torch.kernels import mla_decode as mk
+    from repro_torch.models import mla
+    g = torch.Generator(device=cuda).manual_seed(21)
+    b, t = 32, 2048
+    q = torch.randn(b, 16, 576, device=cuda, generator=g).to(torch.bfloat16)
+    ckv = torch.randn(b, t, 512, device=cuda, generator=g).to(torch.bfloat16)
+    kpe = torch.randn(b, t, 64, device=cuda, generator=g).to(torch.bfloat16)
+    pos = torch.tensor([0, 1, 31, 32, 63, 64, 65, 127, 128, 200, 511, 512,
+                        1000, 1023, 1024, 2046, 2047] +
+                       [int(p) for p in torch.randint(
+                           0, t, (15,), generator=torch.Generator()
+                           .manual_seed(3))], device=cuda)
+    scale = mla.softmax_scale(configs.get("deepseek-v2-lite"))
+    # 32 slots share each slot's rows among a few blocks, 3 slots among
+    # one block a chunk
+    for mult, n in ((1, 32), (8, 32), (1, 3)):
+        qm = q[:n] * mult                 # exact: a power of two
+        c, k, p = ckv[:n], kpe[:n], pos[:n]
+        before = mk.launches
+        got = mk.mla_decode(qm, c, k, p, scale)
+        torch.cuda.synchronize()
+        assert mk.launches == before + 1 and got.dtype == torch.bfloat16
+        want = mk.mla_decode_plain(qm.float(), c, k, p, scale)
+        err = (got.float() - want).abs()
+        bound = _mla_bound(qm, c, k, p, scale, want)
+        assert bool((err <= bound).all()), float((err - bound).max())
+        # far inside the bound where it counts: at the row's scale
+        assert float(err.max()) < 1e-2 * float(want.abs().max())
+
+
+def _mla_model(cuda):
+    """DeepSeek-V2-Lite with every MLA width as published (16 heads,
+    latent 512, RoPE 64), a small model width, one dense and two MoE
+    layers of 8 experts, 8-bit planes, bf16."""
+    cfg = cm.reduced(configs.get("deepseek-v2-lite"), quant_bits=8,
+                     dtype="bfloat16", d_model=256, d_ff=64, vocab=512,
+                     n_heads=16, kv_lora_rank=512, qk_nope_dim=128,
+                     qk_rope_dim=64, v_head_dim=128)
+    return lm.init(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
+
+
+def test_mla_serve_replays_the_eager_step(cuda, monkeypatch):
+    """`serve_continuous` on an MLA model: the captured step gives the
+    eager step's tokens, and every MLA layer's decode counts once on the
+    kernel path, in the eager steps, the capture's warm-up and each
+    replay."""
+    from repro_torch.kernels import mla_decode as mk
+    model = _mla_model(cuda)
+    reqs = _staggered(4, 14, model.cfg.vocab)
+    layers = model.cfg.n_layers
+    counted = []
+    for eager in (True, False):
+        before = (mk.DECODES.value(path="kernel"), mk.launches)
+        out, stats, steps, _ = _serve(model, reqs, eager, monkeypatch)
+        counted.append((out, stats, steps,
+                        mk.DECODES.value(path="kernel") - before[0],
+                        mk.launches - before[1]))
+    (want, want_stats, _, n_eager, l_eager), (got, stats, steps, n, l) = \
+        counted
+    assert got == want and stats == want_stats
+    assert steps == (0, stats["steps"], 1)
+    assert n_eager == l_eager == layers * want_stats["steps"]
+    assert n == l == layers * (stats["steps"] + 1)
+
+
+def test_mla_captured_step_equals_the_eager_step(cuda):
+    """One decode step at mixed positions replayed from a CUDA graph
+    equals the eager step bit for bit, logits and latent caches."""
+    model = _mla_model(cuda)
+    cfg = model.cfg
+    g = torch.Generator(device=cuda).manual_seed(5)
+    states = lm.decode_state_init(cfg, 32, 256, cuda)
+    for st in states:
+        for v in st.values():
+            v.copy_(torch.randn(v.shape, device=cuda, generator=g))
+    tok = torch.randint(0, cfg.vocab, (32, 1), device=cuda, generator=g)
+    pos = torch.randint(0, 256, (32,), device=cuda, generator=g)
+    eager = [{k: v.clone() for k, v in st.items()} for st in states]
+    want, _ = lm.decode_step(model, tok, eager, pos)
+    graph = lm.capture_decode_step(model, tok, states, pos)
+    got, _ = lm.decode_step(model, tok, states, pos, graph=graph)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for a, b in zip(states, eager):
+        for k in a:
+            assert torch.equal(a[k], b[k])
